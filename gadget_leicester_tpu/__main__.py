@@ -12,7 +12,7 @@ import sys
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="gadget_leicester_tpu",
-        description="TPU-native GADGET: TreePM N-body + SPH")
+        description="GADGET rebuilt in JAX: TreePM N-body + SPH")
     ap.add_argument("paramfile", help="GADGET parameter file")
     ap.add_argument("restartflag", nargs="?", type=int, default=0,
                     choices=[0, 1, 2])
@@ -33,6 +33,8 @@ def main(argv=None):
                          "`mpirun -np K` analog); requires periodic TreePM")
     args = ap.parse_args(argv)
 
+    from gadget_leicester_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from gadget_leicester_tpu.core.config import read_parameter_file
     from gadget_leicester_tpu.models.simulation import Simulation
 

@@ -57,8 +57,8 @@ class SimOptions:
     flexsteps: bool = False              # -DFLEXSTEPS — accepted for
     # Makefile parity, INTENTIONALLY a no-op: the reference staggers
     # individual timesteps to smooth per-rank MPI load [G2: timestep.c
-    # FLEXSTEPS]; in the TPU sync-point model every chip executes the
-    # same program and inactive work is skipped per-tile (activity
+    # FLEXSTEPS]; in the sync-point model every device executes the
+    # same program and inactive work is skipped per cell (activity
     # gating), so there is no load imbalance for staggering to smooth.
     forcetest: float = 0.0               # -DFORCETEST=frac (0 disables)
     makeglass: int = 0                   # -DMAKEGLASS=n
@@ -67,12 +67,12 @@ class SimOptions:
     sinks: bool = False                  # sink/accretion particles
     # Precision axis [-DDOUBLEPRECISION]; "f32" matches the stock build.
     dtype: str = "f32"                   # "f32" | "f64"
-    # TPU-rebuild static capacities (the analog of PartAllocFactor headroom):
+    # Static capacities of the rebuild (the analog of PartAllocFactor headroom):
     max_ngb: int = 96                    # fixed neighbour-list capacity K
     tree_depth: int = 8                  # octree depth (max 10 = Morton bits/3)
     # Backend selection (static — specialises the jitted step like -DOPT):
     gravity_mode: str = "auto"           # "auto"|"direct"|"treepm"|"tree"
-    sph_backend: str = "auto"            # "auto"|"dense"|"cells"|"blocks"
+    sph_backend: str = "auto"            # "auto"|"dense"|"cells"
     sph_grid: int = 0                    # cells per axis for SPH (0 = auto)
     sph_capacity: int = 0                # per-cell capacity for SPH (0 = auto)
     sr_capacity: int = 0                 # per-cell capacity, short-range grav
@@ -80,8 +80,6 @@ class SimOptions:
     hr_types: int = 0                    # PLACEHIGHRESREGION type bitmask
                                          # (with gravity_mode="zoom")
     hr_pmgrid: int = 0                   # fine zoom mesh (0 = pmgrid)
-    use_pallas: str = "auto"             # "auto"|"on"|"off" — Pallas kernels
-                                         # ("auto": on for TPU backends)
     output_potential: bool = False       # -DOUTPUTPOTENTIAL: POT snapshot block
     spmd_ghost_frac: float = 0.0         # SPMD ghost-buffer size as a chunk
                                          # fraction (0 = auto from the
@@ -345,8 +343,7 @@ def write_parameter_file(cfg: SimConfig, path: str) -> None:
         fh.write("\n".join(lines) + "\n")
 
 
-# 3-smooth (2^a * 3^b) FFT-friendly PM mesh sizes: radix-5 sizes measured
-# ~40% slower on TPU (200^3 = 3.4 s vs 192^3 = 2.4 s at 4.2M particles).
+# 3-smooth (2^a * 3^b) FFT-friendly PM mesh sizes.
 PMGRID_SIZES = (16, 24, 32, 48, 64, 96, 128, 144, 192, 216, 288, 324,
                 384, 432, 512, 576, 768, 864, 1152)
 
@@ -355,9 +352,10 @@ def auto_pmgrid(n_particles: int) -> int:
     """PM mesh for a periodic TreePM run, derived from particle count.
 
     The reference binds PMGRID at build time [G2: Makefile -DPMGRID];
-    the rebuild derives it: smallest 3-smooth mesh keeping the short-range
-    cell occupancy <= ~110 per cap-128 Pallas tile (ncells = floor(g/5.625),
-    from rcut = 4.5 * ASMTH * box/g)."""
+    the rebuild derives it: smallest 3-smooth mesh keeping the mean
+    short-range cell occupancy <= ~110 particles (ncells = floor(g/5.625),
+    from rcut = 4.5 * ASMTH * box/g), which bounds the 27-cell pair work
+    per particle."""
     for g in PMGRID_SIZES:
         if int(g / 5.625) ** 3 * 110 >= n_particles:
             return g

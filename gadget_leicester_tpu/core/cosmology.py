@@ -10,7 +10,7 @@ The reference precomputes three length-1000 tables on a log-a grid between
 [G2: driftfac.c :: init_drift_table(), get_drift_factor(),
 get_gravkick_factor(), get_hydrokick_factor()].
 
-TPU-first rebuild: the tables are computed once on host with numpy
+Rebuild: the tables are computed once on host with numpy
 cumulative Simpson/trapezoid integration (no GSL), stored as a small pytree
 of jnp arrays, and looked up inside jit with ``jnp.interp`` on log(a) —
 branch-free, vectorises over per-particle timesteps.
@@ -125,7 +125,7 @@ def init_drift_tables(cfg: SimConfig) -> DriftTables:
 # ---------------------------------------------------------------------------
 # Interval factors used by the integrator.
 #
-# TPU redesign note: the reference differenced cumulative tables
+# Redesign note: the reference differenced cumulative tables
 # [G2: driftfac.c :: get_drift_factor() = DriftTable[i1]-DriftTable[i0]]
 # in double precision. In f32 that cancellation destroys all accuracy for
 # small steps, so instead we evaluate each interval integral DIRECTLY with
@@ -142,10 +142,8 @@ def init_drift_tables(cfg: SimConfig) -> DriftTables:
 # [G2: predict.c / timestep.c branch on All.ComovingIntegrationOn].
 # ---------------------------------------------------------------------------
 # 3-point Gauss-Legendre nodes/weights on [0, 1], kept as PYTHON floats:
-# array-shaped trace constants get hoisted as executable parameters, which
-# this environment's pjit fast path then fails to re-supply on cached
-# calls ("Execution supplied N buffers but compiled program expected M") —
-# scalar constants inline into the HLO and avoid the bug entirely.
+# scalar constants inline into the HLO, where array-shaped trace constants
+# would be hoisted as extra executable parameters.
 _GL = (
     (0.1127016653792583, 0.2777777777777778),
     (0.5, 0.4444444444444444),

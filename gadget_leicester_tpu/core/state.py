@@ -2,7 +2,7 @@
 
 The reference keeps AoS arrays ``struct particle_data *P`` and
 ``struct sph_particle_data *SphP`` (gas fields parallel to the first
-N_gas entries of P). TPU-first redesign:
+N_gas entries of P). Redesign:
 
 * **SoA** jnp arrays (one array per field) so every kernel is a wide
   vector op; padded to a fixed capacity (static shapes — the analog of
@@ -27,7 +27,7 @@ import numpy as np
 
 from gadget_leicester_tpu.core.config import SimOptions
 
-PAD_MULTIPLE = 256  # capacity rounding — keeps lane dims TPU-friendly
+PAD_MULTIPLE = 256  # capacity rounding — static-shape headroom
 
 
 def _round_up(n: int, m: int = PAD_MULTIPLE) -> int:
@@ -155,7 +155,7 @@ def allocate(
 ) -> SimState:
     """Fixed-capacity state allocation [G2: allocate.c :: allocate_memory()].
 
-    Capacities round up to PAD_MULTIPLE (static-shape headroom, the TPU
+    Capacities round up to PAD_MULTIPLE (static-shape headroom, the
     analog of PartAllocFactor).
     """
     f = jnp.float64 if opts.dtype == "f64" else jnp.float32

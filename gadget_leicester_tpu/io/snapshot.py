@@ -461,11 +461,18 @@ _H5_HEADER_ATTRS = [
 ]
 
 
+# h5py is optional and imported only by the HDF5 reader/writer, so the
+# main path (formats 1/2, restarts, runs) never needs it
+_NO_H5PY = ("{what} needs the optional h5py package, which is not "
+            "installed; snapshot formats 1 and 2 need nothing extra")
+
+
 def _write_hdf5(path: str, snap: SnapshotData) -> None:
     try:
         import h5py
-    except ImportError as e:  # pragma: no cover
-        raise RuntimeError("format 3 requires h5py") from e
+    except ImportError as e:
+        raise RuntimeError(_NO_H5PY.format(what="writing SnapFormat 3 "
+                                                "(HDF5)")) from e
     header = snap.header
     with h5py.File(path, "w") as f:
         g = f.create_group("Header")
@@ -494,8 +501,9 @@ def _write_hdf5(path: str, snap: SnapshotData) -> None:
 def _read_hdf5(path: str) -> SnapshotData:
     try:
         import h5py
-    except ImportError as e:  # pragma: no cover
-        raise RuntimeError("HDF5 snapshot requires h5py") from e
+    except ImportError as e:
+        raise RuntimeError(_NO_H5PY.format(
+            what=f"reading the HDF5 snapshot {path!r}")) from e
     with h5py.File(path, "r") as f:
         h = Header()
         g = f["Header"]

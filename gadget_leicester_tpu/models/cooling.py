@@ -3,7 +3,7 @@ the fork adds radiative cooling for self-gravitating protoplanetary disc
 runs; the standard Leicester choices are Gammie beta-cooling and
 Stamatellos et al. (2007) polytropic radiative cooling].
 
-Pointwise per-particle physics — trivially TPU-vectorised: one masked
+Pointwise per-particle physics — trivially vectorised: one masked
 vector op over the gas block, folded into dt_entropy so the entropy kick
 integrates it with the same KDK machinery.
 

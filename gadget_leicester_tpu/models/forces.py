@@ -23,9 +23,13 @@ import jax.numpy as jnp
 from gadget_leicester_tpu.core.config import GAMMA, SimConfig, SimOptions
 from gadget_leicester_tpu.core.cosmology import hubble_function
 from gadget_leicester_tpu.core.state import SimState
+from gadget_leicester_tpu.models.grids import resolve_sph_backend
 from gadget_leicester_tpu.ops.gravity_direct import direct_gravity
 from gadget_leicester_tpu.ops.sph_dense import density_adaptive, hydro_force
 from gadget_leicester_tpu.ops.softening import SOFTFAC
+
+# f32 pair sums: no TF32 on GPU tensor cores
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class ComovingFactors(NamedTuple):
@@ -58,9 +62,7 @@ def softening_table(cfg: SimConfig, atime: float | jnp.ndarray = 1.0):
     the comoving table entry becomes min(eps_com, maxphys/a).
 
     Built by stacking SCALAR entries (python-level branch on maxphys>0):
-    (6,)-shaped closure constants get hoisted as executable parameters,
-    which this environment's pjit fast path fails to re-supply on cached
-    calls — scalars inline into the HLO (see core/cosmology._GL note)."""
+    scalars inline into the HLO (see core/cosmology._GL note)."""
     vals = []
     for e, mp in zip(cfg.softenings, cfg.softenings_max_phys):
         if cfg.comoving_integration_on and mp > 0:
@@ -97,8 +99,8 @@ def compute_forces(
 
     # the active set [G2: timestep.c ti_endstep == All.Ti_Current]: only
     # these particles receive fresh forces this sync point; the rest keep
-    # their frozen acc (used by vel_pred drifts) — "inactive particles
-    # cost nothing" via per-tile gating in the Pallas kernels.
+    # their frozen acc (used by vel_pred drifts) — the pair kernel skips
+    # cells that hold no active particle.
     active = (p.ti_endstep == state.ti_current) & p.alive
 
     # ----- gravity ------------------------------------------------------
@@ -150,7 +152,7 @@ def compute_forces(
         pot = pot * cfg.grav_internal
         pot_pm = pot_pm * cfg.grav_internal
         if mode == "treepm" and (opts.sinks or opts.cooling == "stamatellos"):
-            # the SR potential row is tile-gated like the force: inactive
+            # the SR potential row is cell-gated like the force: inactive
             # particles keep their last full potential [G2: P.Potential is
             # refreshed when the particle is active]
             pot = jnp.where(active, pot, p.pot)
@@ -162,7 +164,7 @@ def compute_forces(
             acc = acc + corr * p.pos
         # short-range acc updates only for ACTIVE particles [G2: gravtree.c
         # walks the active list]; inactive keep the frozen value (which the
-        # gated Pallas tiles never computed)
+        # kernel's skipped cells never computed)
         acc = jnp.where(active[:, None], acc, p.acc)
         acc = jnp.where(p.alive[:, None], acc, 0.0)
         acc_pm = jnp.where(p.alive[:, None], acc_pm, 0.0)
@@ -188,7 +190,7 @@ def compute_forces(
 
 def _treepm_gravity(state: SimState, cfg: SimConfig, opts: SimOptions,
                     soft, do_pm=None, active=None):
-    """TreePM: FFT PM long-range + cell/Pallas erfc short-range
+    """TreePM: FFT PM long-range + cell-list erfc short-range
     [G2: pm_periodic.c + forcetree.c shortrange]. The PM part recomputes
     only when `do_pm` (PM steps); otherwise the frozen state.p.acc_pm is
     returned unchanged. Returns (acc_sr, pot, overflow, acc_pm, grids)
@@ -196,6 +198,7 @@ def _treepm_gravity(state: SimState, cfg: SimConfig, opts: SimOptions,
     the updated cache (the cell grid is reused across sync points and
     rebuilt on the displacement cadence — models.grids)."""
     from gadget_leicester_tpu.models.grids import grav_grid_geometry, refresh
+    from gadget_leicester_tpu.ops.cell_pairs import pair_backend
     from gadget_leicester_tpu.ops.gravity_short import shortrange_gravity_cells
     from gadget_leicester_tpu.ops.neighbors import build_cell_list
     from gadget_leicester_tpu.ops.pm import ASMTH, RCUT, pm_forces_periodic
@@ -205,17 +208,8 @@ def _treepm_gravity(state: SimState, cfg: SimConfig, opts: SimOptions,
     g = opts.pmgrid
     asmth_len = ASMTH * box / g
     rcut = RCUT * asmth_len
-    # occupancy-tuned grid + staleness margin (shared with the cache
-    # allocator; see grids.grav_grid_geometry for the tuning rationale)
-    n_cells, cap_hint, margin = grav_grid_geometry(cfg, opts, p.n_max)
-
-    use_pallas = opts.use_pallas == "on" or (
-        opts.use_pallas == "auto" and jax.default_backend() == "tpu")
-    if use_pallas:
-        cap = max(128, ((cap_hint + 127) // 128) * 128)  # lane-aligned
-    else:
-        cap = opts.sr_capacity if opts.sr_capacity > 0 else max(
-            64, int(8 * p.n_max / n_cells**3))
+    # grid + staleness margin + capacity (shared with the cache allocator)
+    n_cells, cap, margin = grav_grid_geometry(cfg, opts, p.n_max)
 
     def build():
         return build_cell_list(p.pos, p.alive, 0.0, box, n_cells=n_cells,
@@ -237,112 +231,26 @@ def _treepm_gravity(state: SimState, cfg: SimConfig, opts: SimOptions,
     # Stamatellos cooling column estimate; otherwise diagnostics get the
     # FULL potential on demand from compute_potential() [G2: potential.c]
     # and the PM pass skips the 4th gather component. When needed, the
-    # SHORT-RANGE part is recomputed fresh EVERY sync point (the kernels
-    # carry a potential row); only the smooth PM piece stays frozen
-    # between PM steps — so periodic sink/cooling runs see the true
-    # potential minimum, not a stale smoothed one (VERDICT r2 item 7).
+    # SHORT-RANGE part is recomputed fresh EVERY sync point; only the
+    # smooth PM piece stays frozen between PM steps — so periodic
+    # sink/cooling runs see the true potential minimum, not a stale
+    # smoothed one.
     with_pot = opts.sinks or opts.cooling == "stamatellos"
-
-    pot_sr = None
-    if use_pallas:
-        from gadget_leicester_tpu.ops.pallas_cells import (
-            ENTRY_LANES, build_active_entries, count_active_entries,
-            grav_tile_flags, pack_cells_soa,
-            shortrange_gravity_pallas_dma9,
-            shortrange_gravity_pallas_entries)
-        kw = dict(asmth=float(asmth_len), rcut=float(rcut),
-                  with_potential=with_pot)
-        # ONE SoA pack shared by the SR kernel AND the cell-tile PM
-        # deposit (pm_tiles) — the "share the SR pack" fix of VERDICT r4.
-        # CELL-RELATIVE coordinates: kernels replace the per-pair
-        # minimum image with constant stencil shifts (pack_cells_soa).
-        kw["relative"] = True
-        with jax.named_scope("sr_pack_shared"):
-            soa = pack_cells_soa(cl, p.pos, p.mass, soft, p.alive,
-                                 relative=True)
-        if active is None:
-            res = shortrange_gravity_pallas_dma9(
-                p.pos, p.mass, soft, p.alive, float(box), n_cells=n_cells,
-                capacity=cap, periodic=True, active=None, cl=cl, soa=soa,
-                **kw)
-        else:
-            # nearly-idle sync points take the cell-compacted active-ENTRY
-            # path (docs/compact_active_design.md): per-particle
-            # granularity via <= lanes active targets per kernel step, one
-            # shared stencil DMA per entry — measured 8.2x the gated dense
-            # kernel at 0.68% spread activity [G2: gravtree.c walks only
-            # the active list]. Busy steps fall back to the flag-gated
-            # dense kernel (the O(N) workhorse).
-            c3 = n_cells ** 3
-            # sized for the measured ~1%-active structure (entries can
-            # exceed the active-cell count via lane spill); padding-tail
-            # grid steps are ~0.3 us no-ops, so oversizing is cheap
-            k_max = max(256, (3 * c3) // 2)
-            # tier pre-gate: entries >= n_active / lanes, so when the
-            # cheap O(N) active count already rules the entries tier out
-            # (every busy sync point), skip the 30 ms scatter-count —
-            # it only runs near-idle, where it decides the tier
-            n_act = jnp.sum(active.astype(jnp.int32))
-            total = jax.lax.cond(
-                n_act <= k_max * ENTRY_LANES,
-                lambda _: count_active_entries(cl, active, ENTRY_LANES),
-                lambda _: jnp.int32(k_max + 1), operand=None)
-            entries_ok = total <= k_max
-
-            def _entries(_):
-                ec, es, _ = build_active_entries(cl, active, ENTRY_LANES,
-                                                 k_max)
-                return shortrange_gravity_pallas_entries(
-                    p.pos, p.mass, soft, p.alive, float(box),
-                    n_cells=n_cells, capacity=cap, entry_cell=ec,
-                    entry_slot=es, cl=cl, periodic=True, soa=soa, **kw)
-
-            def _dense(_):
-                flags = grav_tile_flags(cl, active, n_cells)
-                return shortrange_gravity_pallas_dma9(
-                    p.pos, p.mass, soft, p.alive, float(box),
-                    n_cells=n_cells, capacity=cap, periodic=True,
-                    active=None, cl=cl, flags=flags, soa=soa, **kw)
-
-            res = jax.lax.cond(entries_ok, _entries, _dense, operand=None)
-        if with_pot:
-            acc_sr, pot_sr, overflow = res
-        else:
-            acc_sr, overflow = res
-    else:
-        if with_pot:
-            acc_sr, pot_sr = shortrange_gravity_cells(
-                cl, p.pos, p.mass, soft, p.alive, asmth_len, rcut, box=box,
-                periodic=True, with_potential=True)
-        else:
-            acc_sr = shortrange_gravity_cells(
-                cl, p.pos, p.mass, soft, p.alive, asmth_len, rcut, box=box,
-                periodic=True)
-        overflow = cl.overflow
+    with jax.named_scope("sr_pairs"):
+        res = shortrange_gravity_cells(
+            cl, p.pos, p.mass, soft, p.alive, asmth_len, rcut, box=box,
+            periodic=True, with_potential=with_pot,
+            backend=pair_backend(dtype=opts.dtype), targets=active)
+    acc_sr, pot_sr = res if with_pot else (res, None)
+    overflow = cl.overflow
 
     def compute_pm(_):
         with jax.named_scope("pm"):
-            # deposit: the cell-tile read-modify-write kernel over the
-            # (possibly stale) SR cells, REUSING the SR SoA pack —
-            # measured 132 ms vs 335 ms for the 8x point-scatter CIC at
-            # 4.2M (round-5 profile). The gather stays the row-gather
-            # form: the tile gather measured 285 ms vs 194 ms (the
-            # one-hot construction does not pay on the gather side).
-            rho_grid = None
-            if use_pallas:
-                from gadget_leicester_tpu.ops.pm_tiles import \
-                    pm_deposit_tiles
-                rho_grid = pm_deposit_tiles(
-                    cl, p.pos, p.mass, p.alive, box=float(box), n_pm=g,
-                    n_cells=n_cells, margin_pm=float(margin * g / box),
-                    soa=soa)
             if with_pot:
                 a, pt = pm_forces_periodic(p.pos, p.mass, p.alive, box, g,
-                                           with_potential=True,
-                                           rho_grid=rho_grid)
+                                           with_potential=True)
             else:
-                a = pm_forces_periodic(p.pos, p.mass, p.alive, box, g,
-                                       rho_grid=rho_grid)
+                a = pm_forces_periodic(p.pos, p.mass, p.alive, box, g)
                 pt = jnp.zeros(p.n_max, a.dtype)
             return a * cfg.grav_internal, pt
 
@@ -399,33 +307,20 @@ def compute_potential(state: SimState, cfg: SimConfig,
         g = opts.pmgrid
         asmth_len = ASMTH * box / g
         rcut = RCUT * asmth_len
-        n_cells = max(3, int(box / rcut))
         pot_pm = pm_potential_periodic(p.pos, p.mass, p.alive, box, g)
-        use_pallas = opts.use_pallas == "on" or (
-            opts.use_pallas == "auto" and jax.default_backend() == "tpu")
-        if use_pallas:
-            from gadget_leicester_tpu.ops.pallas_cells import \
-                shortrange_gravity_pallas_dma
-            cap = opts.sr_capacity if opts.sr_capacity > 0 else 128
-            cap = max(128, ((cap + 127) // 128) * 128)
-            _, pot_sr, sr_ovf = shortrange_gravity_pallas_dma(
-                p.pos, p.mass, soft, p.alive, float(box), n_cells=n_cells,
-                capacity=cap, asmth=float(asmth_len), rcut=float(rcut),
-                periodic=True, with_potential=True)
-        else:
-            from gadget_leicester_tpu.ops.gravity_short import \
-                shortrange_gravity_cells
-            from gadget_leicester_tpu.ops.neighbors import build_cell_list
-            if opts.sr_capacity > 0:
-                cap = opts.sr_capacity
-            else:
-                cap = max(64, int(8 * p.n_max / n_cells**3))
-            cl = build_cell_list(p.pos, p.alive, 0.0, box, n_cells=n_cells,
-                                 capacity=cap, periodic=True)
-            _, pot_sr = shortrange_gravity_cells(
-                cl, p.pos, p.mass, soft, p.alive, asmth_len, rcut, box=box,
-                periodic=True, with_potential=True)
-            sr_ovf = cl.overflow
+        from gadget_leicester_tpu.models.grids import grav_grid_geometry
+        from gadget_leicester_tpu.ops.cell_pairs import pair_backend
+        from gadget_leicester_tpu.ops.gravity_short import \
+            shortrange_gravity_cells
+        from gadget_leicester_tpu.ops.neighbors import build_cell_list
+        n_cells, cap, _ = grav_grid_geometry(cfg, opts, p.n_max)
+        cl = build_cell_list(p.pos, p.alive, 0.0, box, n_cells=n_cells,
+                             capacity=cap, periodic=True)
+        _, pot_sr = shortrange_gravity_cells(
+            cl, p.pos, p.mass, soft, p.alive, asmth_len, rcut, box=box,
+            periodic=True, with_potential=True,
+            backend=pair_backend(dtype=opts.dtype))
+        sr_ovf = cl.overflow
         # an over-capacity grid truncates the potential feeding the energy
         # diagnostics — surface it like the force passes do
         state = dataclasses.replace(
@@ -550,7 +445,7 @@ def _zoom_gravity(state: SimState, cfg: SimConfig, opts: SimOptions, soft):
                 fac = fac * (1.0 - both)
                 pw = pw * (1.0 - both)
             w = sm * fac
-            return (-jnp.einsum("bc,bcd->bd", w, dx),
+            return (-jnp.einsum("bc,bcd->bd", w, dx, precision=HIGHEST),
                     jnp.sum(sm * pw, axis=-1))
 
         return apply_pairwise(cl, p.pos, pair_fn, block=256)
@@ -603,161 +498,14 @@ def compute_sph(state: SimState, cfg: SimConfig, opts: SimOptions,
     eps_gas = softening_table(cfg, fac.atime)[0]
     min_hsml = cfg.min_gas_hsml_fractional * SOFTFAC * eps_gas
 
-    backend = opts.sph_backend
-    use_pallas = opts.use_pallas == "on" or (
-        opts.use_pallas == "auto" and jax.default_backend() == "tpu")
-    if backend == "auto":
-        if gas.n_gas_max <= 4096:
-            backend = "dense"
-        else:
-            # block-packed kernels are the fast path on TPU; the coarse
-            # cells path remains for CPU (jnp) runs
-            backend = "blocks" if use_pallas else "cells"
-
-    if backend == "blocks":
-        from gadget_leicester_tpu.models.grids import (KAPPA_SPH, refresh,
-                                                       sph_blocks_geometry)
-        from gadget_leicester_tpu.ops.sph_blocks import (
-            build_block_lists, density_adaptive_blocks, hydro_force_blocks)
-        ng = gas.n_gas_max
-        n_blocks, subcap = sph_blocks_geometry(cfg, opts, ng)
-
-        def build_blocks():
-            if opts.periodic:
-                origin, extent = 0.0, cfg.box_size
-            else:
-                lo = jnp.min(jnp.where(gas_mask[:, None], pos_g, jnp.inf),
-                             axis=0)
-                hi = jnp.max(jnp.where(gas_mask[:, None], pos_g, -jnp.inf),
-                             axis=0)
-                pad_w = 0.01 * jnp.max(hi - lo) + 1e-6
-                origin = lo - pad_w
-                extent = jnp.max(hi - lo) + 2 * pad_w
-            return build_block_lists(pos_g, gas_mask, origin, extent,
-                                     n_blocks=n_blocks, subcap=subcap,
-                                     periodic=opts.periodic)
-
-        grids = state.grids
-        if grids is not None and isinstance(grids.sph, tuple):
-            # stale-tolerant cached block lists (models.grids): h is capped
-            # 2*KAPPA_SPH below the fine-cell edge, buying the displacement
-            # margin that keeps the even/odd stencil coverage exact
-            count_now = jnp.sum(gas_mask).astype(jnp.int32)
-            subcell_c = 1.0 / grids.sph[0].inv_cell[0]
-            margin = 2.0 * KAPPA_SPH * subcell_c
-            cls_in, sv, sd, sc, _ = refresh(
-                grids.sph, grids.sph_valid, grids.sph_disp,
-                grids.sph_count, margin, count_now, build_blocks)
-            grids = dataclasses.replace(grids, sph=cls_in, sph_valid=sv,
-                                        sph_disp=sd, sph_count=sc)
-            state = dataclasses.replace(state, grids=grids)
-        else:
-            cls_in = build_blocks()
-        cl_e_in = cls_in[0]
-        if opts.periodic:
-            subcell = cfg.box_size / (2 * n_blocks)
-        else:
-            subcell = 1.0 / cl_e_in.inv_cell[0]
-        max_hsml = (1.0 - 2.0 * KAPPA_SPH) * subcell
-        box_v = float(cfg.box_size) if opts.periodic else 1.0
-        hsml_in = jnp.minimum(gas.hsml, max_hsml)
-        dkw = dict(des_num_ngb=cfg.des_num_ngb,
-                   max_dev=cfg.max_num_ngb_deviation,
-                   box=box_v, min_hsml=min_hsml, max_hsml=max_hsml,
-                   periodic=opts.periodic)
-        # nearly-idle sync points take the cell-compacted active-ENTRY
-        # SPH path (docs/compact_active_design.md, the gravity analog in
-        # _treepm_gravity): <= ENTRY_LANES active targets per kernel
-        # step, the 8 odd source blocks as ONE strided DMA
-        # [G2: density.c — only the active list gets fresh sums]
-        sph_entries = None
-        if use_pallas:
-            from gadget_leicester_tpu.ops.pallas_cells import (
-                ENTRY_LANES, build_active_entries)
-            from gadget_leicester_tpu.ops.sph_blocks import (
-                count_block_entries, density_adaptive_blocks_entries,
-                hydro_force_blocks_entries)
-            b3 = n_blocks ** 3
-            k_max_sph = 2 * b3
-            # same cheap pre-gate as the gravity tier: the scatter-count
-            # only runs when the active total leaves the entries tier
-            # in play (see _treepm_gravity)
-            n_act_g = jnp.sum(active_g.astype(jnp.int32))
-            total_e = jax.lax.cond(
-                n_act_g <= k_max_sph * ENTRY_LANES,
-                lambda _: count_block_entries(cls_in[0], active_g,
-                                              ENTRY_LANES),
-                lambda _: jnp.int32(k_max_sph + 1), operand=None)
-            entries_ok = total_e <= k_max_sph
-            sph_entries = (entries_ok, k_max_sph, ENTRY_LANES,
-                           build_active_entries)
-        with jax.named_scope("density"):
-            if sph_entries is not None:
-                entries_ok, k_max_sph, _lanes, _bae = sph_entries
-
-                def _dense_d(_):
-                    dres, _cls = density_adaptive_blocks(
-                        pos_g, gas.vel_pred, mass_g, hsml_in, gas_mask,
-                        n_blocks=n_blocks, subcap=subcap,
-                        interpret=False, active=active, cls=cls_in, **dkw)
-                    return dres
-
-                def _entries_d(_):
-                    ec, es, _ = _bae(cls_in[0], active_g, _lanes,
-                                     k_max_sph)
-                    dekw = {k: v for k, v in dkw.items()}
-                    return density_adaptive_blocks_entries(
-                        pos_g, gas.vel_pred, mass_g, hsml_in, gas_mask,
-                        ec, es, cls=cls_in, interpret=False, **dekw)
-
-                dres = jax.lax.cond(entries_ok, _entries_d, _dense_d,
-                                    operand=None)
-                cls_sph = cls_in
-            else:
-                dres, cls_sph = density_adaptive_blocks(
-                    pos_g, gas.vel_pred, mass_g, hsml_in, gas_mask,
-                    n_blocks=n_blocks, subcap=subcap,
-                    interpret=not use_pallas,
-                    active=active, cls=cls_in, **dkw)
-    elif backend == "cells" and use_pallas:
-        from gadget_leicester_tpu.ops.pallas_cells import (
-            density_adaptive_pallas, hydro_force_pallas)
-        ng = gas.n_gas_max
-        if opts.periodic:
-            origin, extent = 0.0, cfg.box_size
-        else:
-            lo = jnp.min(jnp.where(gas_mask[:, None], pos_g, jnp.inf), axis=0)
-            hi = jnp.max(jnp.where(gas_mask[:, None], pos_g, -jnp.inf), axis=0)
-            pad_w = 0.01 * jnp.max(hi - lo) + 1e-6
-            origin = lo - pad_w
-            extent = jnp.max(hi - lo) + 2 * pad_w
-        if opts.sph_grid > 0:
-            n_cells = opts.sph_grid
-        else:
-            # target mean occupancy ~100 for a 128-lane tile (fill ~0.78);
-            # the resulting cell is ~4.6 interparticle spacings, comfortably
-            # above the typical h ~ 2 spacings that DesNumNgb~33-50 implies
-            n_cells = max(3, int(round((ng / 100.0) ** (1.0 / 3.0))))
-        cap = opts.sph_capacity if opts.sph_capacity > 0 else 128
-        cap = max(128, ((cap + 127) // 128) * 128)
-        max_hsml = (cfg.box_size / n_cells if opts.periodic
-                    else extent / n_cells)
-        dres, cl_sph = density_adaptive_pallas(
-            pos_g, gas.vel_pred, mass_g,
-            jnp.minimum(gas.hsml, max_hsml), gas_mask,
-            des_num_ngb=cfg.des_num_ngb,
-            max_dev=cfg.max_num_ngb_deviation,
-            box=float(cfg.box_size) if opts.periodic else 1.0,
-            n_cells=n_cells, capacity=cap,
-            min_hsml=min_hsml, max_hsml=max_hsml,
-            periodic=opts.periodic,
-            origin=origin, extent=extent,
-        )
-    elif backend == "cells":
+    backend = resolve_sph_backend(opts, gas.n_gas_max)
+    if backend == "cells":
+        from gadget_leicester_tpu.models.grids import sph_cells_geometry
+        from gadget_leicester_tpu.ops.cell_pairs import pair_backend
         from gadget_leicester_tpu.ops.neighbors import build_cell_list
         from gadget_leicester_tpu.ops.sph_cells import (
             density_adaptive_cells, hydro_force_cells)
-        ng = gas.n_gas_max
+        pairs = pair_backend(dtype=opts.dtype)
         if opts.periodic:
             origin = jnp.zeros(3, pos_g.dtype)
             extent = jnp.full((3,), cfg.box_size, pos_g.dtype)
@@ -766,29 +514,23 @@ def compute_sph(state: SimState, cfg: SimConfig, opts: SimOptions,
             hi = jnp.max(jnp.where(gas_mask[:, None], pos_g, -jnp.inf), axis=0)
             pad = 0.01 * (hi - lo) + 1e-6
             origin, extent = lo - pad, (hi - lo) + 2 * pad
-        if opts.sph_grid > 0:
-            n_cells = opts.sph_grid
-        else:
-            # static estimate: typical h ~ spacing*(3 Ngb/4pi)^(1/3);
-            # cell >= ~1.6x that. h is additionally CAPPED at the cell size
-            # (max_hsml) — the void-h compromise, SURVEY.md §7 hard part 2.
-            spacing_cells = (ng ** (1.0 / 3.0)) / (
-                1.6 * (3.0 * cfg.des_num_ngb / (4.0 * 3.14159)) ** (1.0 / 3.0))
-            n_cells = max(3, int(spacing_cells))
-        cap = opts.sph_capacity if opts.sph_capacity > 0 else max(
-            32, int(6 * ng / n_cells**3))
+        # h is CAPPED at the cell edge (max_hsml) — the void-h compromise,
+        # SURVEY.md §7 hard part 2
+        n_cells, cap = sph_cells_geometry(cfg, opts, gas.n_gas_max)
         cl = build_cell_list(pos_g, gas_mask, origin, extent,
                              n_cells=n_cells, capacity=cap,
                              periodic=opts.periodic)
         max_hsml = jnp.min(extent) / n_cells
-        dres = density_adaptive_cells(
-            cl, pos_g, gas.vel_pred, mass_g,
-            jnp.minimum(gas.hsml, max_hsml), gas_mask,
-            des_num_ngb=cfg.des_num_ngb,
-            max_dev=cfg.max_num_ngb_deviation,
-            min_hsml=min_hsml, max_hsml=max_hsml,
-            box=cfg.box_size, periodic=opts.periodic,
-        )
+        with jax.named_scope("density"):
+            dres = density_adaptive_cells(
+                cl, pos_g, gas.vel_pred, mass_g,
+                jnp.minimum(gas.hsml, max_hsml), gas_mask,
+                des_num_ngb=cfg.des_num_ngb,
+                max_dev=cfg.max_num_ngb_deviation,
+                min_hsml=min_hsml, max_hsml=max_hsml,
+                box=cfg.box_size, periodic=opts.periodic,
+                backend=pairs, targets=active_g,
+            )
     else:
         dres = density_adaptive(
             pos_g, gas.vel_pred, mass_g, gas.hsml, gas_mask,
@@ -832,62 +574,18 @@ def compute_sph(state: SimState, cfg: SimConfig, opts: SimOptions,
         hubble_a2_norm=fac.hubble_a2_norm,
         fac_mu=fac.fac_mu,
     )
-    if backend == "blocks":
-        hkw = dict(visc_const=cfg.art_bulk_visc_const,
-                   box=float(cfg.box_size) if opts.periodic else 1.0,
-                   hubble_a2_flow=fac.hubble_a2_flow,
-                   hubble_a2_norm=fac.hubble_a2_norm,
-                   fac_mu=fac.fac_mu)
+    if backend == "cells":
         with jax.named_scope("hydro"):
-            if sph_entries is not None:
-                entries_ok, k_max_sph, _lanes, _bae = sph_entries
-
-                def _dense_h(_):
-                    return hydro_force_blocks(
-                        cls_sph, pos_g, gas.vel_pred, mass_g, dres.hsml,
-                        dres.rho, pressure, dres.dhsml_factor,
-                        dres.div_vel, dres.curl_vel, gas_mask,
-                        interpret=False, active=active, **hkw)
-
-                def _entries_h(_):
-                    ec, es, _ = _bae(cls_sph[0], active_g, _lanes,
-                                     k_max_sph)
-                    return hydro_force_blocks_entries(
-                        cls_sph, pos_g, gas.vel_pred, mass_g, dres.hsml,
-                        dres.rho, pressure, dres.dhsml_factor,
-                        dres.div_vel, dres.curl_vel, gas_mask, ec, es,
-                        interpret=False, **hkw)
-
-                hres = jax.lax.cond(entries_ok, _entries_h, _dense_h,
-                                    operand=None)
-            else:
-                hres = hydro_force_blocks(
-                    cls_sph, pos_g, gas.vel_pred, mass_g, dres.hsml,
-                    dres.rho, pressure, dres.dhsml_factor, dres.div_vel,
-                    dres.curl_vel, gas_mask,
-                    interpret=not use_pallas, active=active, **hkw)
-    elif backend == "cells" and use_pallas:
-        hres = hydro_force_pallas(
-            cl_sph, pos_g, gas.vel_pred, mass_g, dres.hsml, dres.rho,
-            pressure, dres.dhsml_factor, dres.div_vel, dres.curl_vel,
-            gas_mask, visc_const=cfg.art_bulk_visc_const,
-            box=float(cfg.box_size) if opts.periodic else 1.0,
-            n_cells=n_cells,
-            hubble_a2_flow=fac.hubble_a2_flow,
-            hubble_a2_norm=fac.hubble_a2_norm,
-            fac_mu=fac.fac_mu,
-        )
-    elif backend == "cells":
-        hres = hydro_force_cells(
-            cl, pos_g, gas.vel_pred, mass_g, dres.hsml, dres.rho, pressure,
-            dres.dhsml_factor, dres.div_vel, dres.curl_vel, gas_mask,
-            **hydro_kw)
+            hres = hydro_force_cells(
+                cl, pos_g, gas.vel_pred, mass_g, dres.hsml, dres.rho,
+                pressure, dres.dhsml_factor, dres.div_vel, dres.curl_vel,
+                gas_mask, backend=pairs, targets=active_g, **hydro_kw)
     else:
         hres = hydro_force(
             pos_g, gas.vel_pred, mass_g, dres.hsml, dres.rho, pressure,
             dres.dhsml_factor, dres.div_vel, dres.curl_vel, gas_mask,
             **hydro_kw)
-    # hydro outputs update only active gas (gated tiles returned zeros);
+    # hydro outputs update only active gas (skipped cells returned zeros);
     # cell-dropped particles (take==False) keep their frozen values too
     hydro_acc = jnp.where(take[:, None], hres.acc, gas.hydro_acc)
     dt_entropy = jnp.where(take, hres.dt_entropy, gas.dt_entropy)
@@ -896,14 +594,10 @@ def compute_sph(state: SimState, cfg: SimConfig, opts: SimOptions,
     if opts.isotherm_eqs:
         dt_entropy = jnp.zeros_like(dt_entropy)  # entropy fixed (isothermal)
 
-    if backend in ("cells", "blocks"):
-        if backend == "blocks":
-            ovf = cls_sph[0].overflow
-        else:
-            ovf = cl_sph.overflow if use_pallas else cl.overflow
+    if backend == "cells":
         state = dataclasses.replace(
             state, overflow_flags=state.overflow_flags
-            | jnp.where(ovf, jnp.int32(2), jnp.int32(0)))
+            | jnp.where(cl.overflow, jnp.int32(2), jnp.int32(0)))
 
     gas = dataclasses.replace(
         gas,

@@ -6,7 +6,7 @@ Poisson positions and evolve them under SIGN-REVERSED gravity (particles
 repel) with velocity damping; the configuration relaxes toward a
 force-free glass. Used as low-noise ICs for cosmological runs.
 
-TPU rebuild: a fused jit loop — reversed PM forces (mesh-only, adequate
+Rebuild: a fused jit loop — reversed PM forces (mesh-only, adequate
 for glass-making), steepest-descent-like position updates, periodic wrap.
 """
 

@@ -5,9 +5,9 @@ TreeDomainUpdateFrequency * N force computations; forcetree.c drifts node
 centres between rebuilds].
 
 The reference does NOT rebuild its tree every sync point: it tolerates
-slightly stale node geometry and re-decomposes only on a cadence. The
-TPU equivalent: the uniform-grid CELL ASSIGNMENTS (the product of the
-O(N log N) sort in build_cell_list / build_block_lists) are cached in the
+slightly stale node geometry and re-decomposes only on a cadence. Here
+the uniform-grid CELL ASSIGNMENTS of the short-range gravity grid (the
+product of the O(N log N) sort in build_cell_list) are cached in the
 SimState and reused across sync points; pair forces always read FRESH
 positions, so the physics of found pairs is exact — staleness only
 affects *which* pairs the stencil can see.
@@ -18,24 +18,21 @@ build-time separation is below the cell edge:
 
     r_int + 2 * max_displacement_since_build  <=  cell_edge
 
-Each grid therefore carries a static ``margin`` (cell_edge - r_int) and a
-running per-grid displacement counter (incremented every drift by the
-step's max per-particle |dx|_inf); the grid rebuilds — inside the jitted
-step, via ``lax.cond`` — when ``2 * disp > margin``.
+The grid therefore carries a static ``margin`` (cell_edge - r_int) and a
+running displacement counter (incremented every drift by the step's max
+per-particle |dx|_inf); it rebuilds — inside the jitted step, via
+``lax.cond`` — when ``2 * disp > margin``. The margin is the hard slack
+when the geometry has one, else a SOFT margin of ``SOFT_RCUT_FRAC *
+rcut``: pairs that staleness can lose lie in the thin shell
+[rcut - 2*disp, rcut] where the erfc truncation has already suppressed the
+force to a few percent of 1/r^2 [G2: shortrange_table cutoff at RCUT = 4.5
+ASMTH] — the same graceful-tail argument that sets RCUT itself. The
+in-run forcetest oracle measures the combined error.
 
-* SPH grids use a HARD margin: the h cap is tightened to
-  ``(1 - 2*KAPPA_SPH) * subcell`` so the guarantee is exact.
-* The gravity short-range grid uses the hard slack when the geometry has
-  one, else a SOFT margin of ``SOFT_RCUT_FRAC * rcut``: pairs that
-  staleness can lose lie in the thin shell [rcut - 2*disp, rcut] where the
-  erfc truncation has already suppressed the force to a few percent of
-  1/r^2 [G2: shortrange_table cutoff at RCUT = 4.5 ASMTH] — the same
-  graceful-tail argument that sets RCUT itself. The in-run forcetest
-  oracle measures the combined error.
-
-Kernels consuming stale assignments MUST use per-pair minimum-image
-geometry (a particle that drifted across the periodic wrap keeps its old
-cell; tile-constant wrap shifts would mis-place it by a box length).
+Pair sums over stale assignments must not assume a particle lies in its
+assigned cell: the XLA path minimum-images every pair, and the kernel
+stores cell-relative coordinates minimum-imaged when packed
+(ops.cell_pairs).
 """
 
 from __future__ import annotations
@@ -46,38 +43,30 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from gadget_leicester_tpu.core.config import SimConfig, SimOptions
 from gadget_leicester_tpu.ops.neighbors import CellList
 
-# SPH staleness margin as a fraction of the fine-cell edge (h is capped at
-# (1 - 2k) * subcell; rebuild when 2*disp > 2k * subcell... i.e. margin =
-# 2k*subcell shared between the two pair ends).
-KAPPA_SPH = 0.05
 # gravity soft-margin floor, as a fraction of rcut (see module docstring)
 SOFT_RCUT_FRAC = 0.08
 
 
 @dataclass
 class GridCache:
-    """Cached neighbour structures + staleness bookkeeping (a SimState
-    field; ``None`` for configurations that build no uniform grids)."""
+    """Cached neighbour structure + staleness bookkeeping (a SimState
+    field; ``None`` for configurations that build no uniform grid). The
+    SPMD step caches a per-shard (cell list, ghost rows) pair in ``grav``
+    with a leading shard axis on every leaf."""
 
-    grav: Optional[CellList]           # gravity short-range grid
-    sph: object                        # CellList | (CellList, CellList) | None
-    grav_disp: jnp.ndarray             # f32 scalar: max-displacement sum
-    sph_disp: jnp.ndarray              # since the respective build
-    grav_valid: jnp.ndarray            # bool scalars
-    sph_valid: jnp.ndarray
-    grav_count: jnp.ndarray            # i32: alive count at grav build
-    sph_count: jnp.ndarray             # i32: alive-gas count at sph build
+    grav: object                       # CellList | (CellList, rows)
+    grav_disp: jnp.ndarray             # f32: max-displacement sum since build
+    grav_valid: jnp.ndarray            # bool
+    grav_count: jnp.ndarray            # i32: alive count at build
 
 
 jax.tree_util.register_dataclass(
     GridCache,
-    data_fields=["grav", "sph", "grav_disp", "sph_disp",
-                 "grav_valid", "sph_valid", "grav_count", "sph_count"],
+    data_fields=["grav", "grav_disp", "grav_valid", "grav_count"],
     meta_fields=[],
 )
 
@@ -98,65 +87,59 @@ def resolve_gravity_mode(opts: SimOptions, n_max: int) -> str:
 
 def resolve_sph_backend(opts: SimOptions, ng: int) -> str:
     backend = opts.sph_backend
-    use_pallas = opts.use_pallas == "on" or (
-        opts.use_pallas == "auto" and jax.default_backend() == "tpu")
     if backend == "auto":
-        backend = "dense" if ng <= 4096 else (
-            "blocks" if use_pallas else "cells")
+        backend = "dense" if ng <= 4096 else "cells"
     return backend
 
 
 def grav_grid_geometry(cfg: SimConfig, opts: SimOptions, n_max: int):
-    """(n_cells, capacity_hint, margin) for the periodic TreePM
-    short-range grid. ``margin`` is the staleness budget (see module
-    docstring); the occupancy tuning mirrors forces._treepm_gravity."""
+    """(n_cells, capacity, margin) for the periodic TreePM short-range
+    grid. The grid starts at the finest edge >= rcut and coarsens while
+    the mean occupancy stays at or below 0.8 * 128 slots (the occupancy
+    target; an ``sr_capacity`` override replaces the 128), buying a hard
+    staleness margin for sparse runs. ``margin`` is the staleness budget
+    (see module docstring); the capacity follows the pair backend
+    (ops.cell_pairs.pair_backend)."""
+    from gadget_leicester_tpu.ops.cell_pairs import (kernel_capacity,
+                                                     pair_backend)
     from gadget_leicester_tpu.ops.pm import ASMTH, RCUT
     box = float(cfg.box_size)
     g = opts.pmgrid
     asmth_len = ASMTH * box / g
     rcut = RCUT * asmth_len
     n_cells = max(3, int(box / rcut))
-    cap_hint = opts.sr_capacity if opts.sr_capacity > 0 else 128
-    while n_cells > 4 and n_max / (n_cells - 1) ** 3 <= 0.80 * cap_hint:
+    occ_target = 0.80 * (opts.sr_capacity if opts.sr_capacity > 0 else 128)
+    while n_cells > 4 and n_max / (n_cells - 1) ** 3 <= occ_target:
         n_cells -= 1
     hard = box / n_cells - rcut
     margin = max(hard, SOFT_RCUT_FRAC * rcut)
-    return n_cells, cap_hint, margin
-
-
-def sph_blocks_geometry(cfg: SimConfig, opts: SimOptions, ng: int):
-    """(n_blocks, subcap) for the block-packed SPH path (mirrors
-    forces.compute_sph)."""
-    subcap = opts.sph_capacity if opts.sph_capacity > 0 else 32
-    if opts.sph_grid > 0:
-        n_blocks = max(2, opts.sph_grid // 2)
+    mean = n_max / n_cells**3
+    if pair_backend(dtype=opts.dtype) == "triton":
+        cap = kernel_capacity(mean, opts.sr_capacity)
     else:
-        n_blocks = max(2, int(round(
-            (ng / (8 * 0.78 * subcap)) ** (1.0 / 3.0))))
-    return n_blocks, subcap
+        cap = opts.sr_capacity if opts.sr_capacity > 0 else max(
+            64, int(8 * mean))
+    return n_cells, cap, margin
 
 
 def sph_cells_geometry(cfg: SimConfig, opts: SimOptions, ng: int):
-    """(n_cells, capacity) for the coarse-cell SPH path."""
+    """(n_cells, capacity) for the SPH cell grid: cells ~1.6x the typical
+    smoothing length (h is capped at the cell edge), capacity by the pair
+    backend."""
+    from gadget_leicester_tpu.ops.cell_pairs import (kernel_capacity,
+                                                     pair_backend)
     if opts.sph_grid > 0:
         n_cells = opts.sph_grid
     else:
-        use_pallas = opts.use_pallas == "on" or (
-            opts.use_pallas == "auto" and jax.default_backend() == "tpu")
-        if use_pallas:
-            n_cells = max(3, int(round((ng / 100.0) ** (1.0 / 3.0))))
-        else:
-            spacing_cells = (ng ** (1.0 / 3.0)) / (
-                1.6 * (3.0 * cfg.des_num_ngb / (4.0 * 3.14159)) ** (1.0 / 3.0))
-            n_cells = max(3, int(spacing_cells))
-    use_pallas = opts.use_pallas == "on" or (
-        opts.use_pallas == "auto" and jax.default_backend() == "tpu")
-    if use_pallas:
-        cap = opts.sph_capacity if opts.sph_capacity > 0 else 128
-        cap = max(128, ((cap + 127) // 128) * 128)
+        spacing_cells = (ng ** (1.0 / 3.0)) / (
+            1.6 * (3.0 * cfg.des_num_ngb / (4.0 * 3.14159)) ** (1.0 / 3.0))
+        n_cells = max(3, int(spacing_cells))
+    mean = ng / n_cells**3
+    if pair_backend(dtype=opts.dtype) == "triton":
+        cap = kernel_capacity(mean, opts.sph_capacity)
     else:
         cap = opts.sph_capacity if opts.sph_capacity > 0 else max(
-            32, int(6 * ng / n_cells**3))
+            32, int(6 * mean))
     return n_cells, cap
 
 
@@ -164,12 +147,11 @@ def sph_cells_geometry(cfg: SimConfig, opts: SimOptions, ng: int):
 # Allocation
 # ---------------------------------------------------------------------------
 def _empty_cl(total_cells: int, capacity: int, n: int, n_cells, periodic,
-              dtype, counts_size: int | None = None) -> CellList:
+              dtype) -> CellList:
     return CellList(
         cells=jnp.full((total_cells, capacity), -1, jnp.int32),
         cell_of=jnp.full((n,), -1, jnp.int32),
-        counts=jnp.zeros((counts_size if counts_size is not None
-                          else total_cells,), jnp.int32),
+        counts=jnp.zeros((total_cells,), jnp.int32),
         overflow=jnp.asarray(False),
         gslot=jnp.full((n,), -1, jnp.int32),
         origin=jnp.zeros((3,), dtype),
@@ -186,43 +168,21 @@ def make_grid_cache(cfg: SimConfig, opts: SimOptions, n_max: int,
     structure applies (non-TreePM gravity and dense SPH)."""
     f = jnp.float64 if opts.dtype == "f64" else jnp.float32
     mode = resolve_gravity_mode(opts, n_max)
-    backend = resolve_sph_backend(opts, ng) if ng > 1 else "none"
 
     grav = None
     if mode == "treepm" and not opts.nogravity:
-        n_cells, cap_hint, _ = grav_grid_geometry(cfg, opts, n_max)
-        use_pallas = opts.use_pallas == "on" or (
-            opts.use_pallas == "auto" and jax.default_backend() == "tpu")
-        if use_pallas:
-            cap = max(128, ((cap_hint + 127) // 128) * 128)
-        else:
-            cap = opts.sr_capacity if opts.sr_capacity > 0 else max(
-                64, int(8 * n_max / n_cells**3))
+        n_cells, cap, _ = grav_grid_geometry(cfg, opts, n_max)
         grav = _empty_cl(n_cells**3, cap, n_max, n_cells, True, f)
+    # (the SPH cell grid stays fresh-build: its h cap is the cell edge,
+    # with no staleness slack)
 
-    sph = None
-    if backend == "blocks":
-        n_blocks, subcap = sph_blocks_geometry(cfg, opts, ng)
-        lanes = 8 * subcap
-        nb_o = n_blocks if opts.periodic else n_blocks + 1
-        fine = (2 * n_blocks) ** 3   # counts are per FINE subcell
-        sph = (_empty_cl(n_blocks**3, lanes, ng, n_blocks, opts.periodic, f,
-                         counts_size=fine),
-               _empty_cl(nb_o**3, lanes, ng, nb_o, opts.periodic, f,
-                         counts_size=fine))
-    # (the coarse-cell SPH backend deliberately stays fresh-build: it is
-    # the CPU/SPMD reference path and its max_hsml cap is unchanged)
-
-    if grav is None and sph is None:
+    if grav is None:
         return None
     return GridCache(
-        grav=grav, sph=sph,
+        grav=grav,
         grav_disp=jnp.zeros((), jnp.float32),
-        sph_disp=jnp.zeros((), jnp.float32),
         grav_valid=jnp.asarray(False),
-        sph_valid=jnp.asarray(False),
         grav_count=jnp.zeros((), jnp.int32),
-        sph_count=jnp.zeros((), jnp.int32),
     )
 
 
@@ -237,7 +197,7 @@ def note_drift(grids: Optional[GridCache], dx_max) -> Optional[GridCache]:
         return None
     d = jnp.asarray(dx_max, jnp.float32)
     return dataclasses.replace(
-        grids, grav_disp=grids.grav_disp + d, sph_disp=grids.sph_disp + d)
+        grids, grav_disp=grids.grav_disp + d)
 
 
 def refresh(cached_cl, valid, disp, count, margin, count_now, build_fn):

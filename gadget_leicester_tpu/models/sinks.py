@@ -4,7 +4,7 @@ UNVERIFIED-FORK: accretion-radius sink checks a la Bate et al. 1995].
 A sink is a collisionless particle registered in ``SinkState.slot``. Each
 sync point, gas particles inside a sink's accretion radius that are bound
 and approaching are accreted: their mass and momentum transfer to the sink
-and they are masked dead (``alive=False``) — the TPU rebuild of particle
+and they are masked dead (``alive=False``) — the rebuild of particle
 removal is masking, never compaction (static shapes).
 
 Vectorised as an [S, Ng] distance/criteria matrix (S = sink capacity is
@@ -15,11 +15,15 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 
 from gadget_leicester_tpu.core.config import (GAMMA_MINUS1, SimConfig,
                                               SimOptions)
 from gadget_leicester_tpu.core.state import SimState
+
+# f32 pair sums: no TF32 on GPU tensor cores
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _min_image(dx, cfg: SimConfig, opts: SimOptions):
@@ -87,7 +91,7 @@ def accrete_onto_sinks(state: SimState, cfg: SimConfig, opts: SimOptions) -> Sim
     m_g = jnp.where(gas_mask, p.mass[:ng], 0.0)
     dm = jnp.sum(jnp.where(claim, m_g[None, :], 0.0), axis=1)            # [S]
     dp = jnp.einsum("sn,nc->sc", jnp.where(claim, m_g[None, :], 0.0),
-                    p.vel[:ng])                                          # [S,3]
+                    p.vel[:ng], precision=HIGHEST)                       # [S,3]
     n_acc = jnp.sum(claim, axis=1).astype(jnp.int32)
 
     # update sink particles (conserve mass + momentum)

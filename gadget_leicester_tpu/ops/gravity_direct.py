@@ -1,7 +1,7 @@
 """Direct-summation O(N^2) gravity — the rebuild of the reference's built-in
 accuracy oracle [G2: gravtree_forcetest.c :: gravity_forcetest()] and the
 production gravity path for small-N configs (gassphere-scale), where brute
-force on the VPU beats any tree.
+force beats any tree.
 
 Row-blocked all-pairs: targets are processed in blocks of ``block`` rows
 against all N sources via ``lax.map``, bounding peak memory at
@@ -21,6 +21,9 @@ import jax
 import jax.numpy as jnp
 
 from gadget_leicester_tpu.ops.softening import grav_fac, grav_pot
+
+# f32 pair sums: no TF32 on GPU tensor cores
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _min_image(dx, box):
@@ -85,7 +88,7 @@ def direct_gravity(
         if rcut > 0.0:
             fac = jnp.where(r < rcut, fac, 0.0)
         w = src_mass[None, :] * fac                    # [B,N]
-        acc = -jnp.einsum("bn,bnc->bc", w, dx)
+        acc = -jnp.einsum("bn,bnc->bc", w, dx, precision=HIGHEST)
         if with_potential:
             pw = grav_pot(r, h)
             if asmth > 0.0:

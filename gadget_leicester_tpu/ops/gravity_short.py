@@ -22,13 +22,15 @@ from gadget_leicester_tpu.ops.gravity_direct import shortrange_trunc
 from gadget_leicester_tpu.ops.neighbors import CellList, apply_pairwise
 from gadget_leicester_tpu.ops.softening import grav_fac
 
+HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def _min_image(dx, box):
     return dx - box * jnp.round(dx / box)
 
 
 @partial(hybrid_jit, static_argnames=("block", "periodic", "with_potential",
-                                      "n_targets"))
+                                      "n_targets", "backend", "interpret"))
 def shortrange_gravity_cells(
     cl: CellList,
     pos,
@@ -42,13 +44,36 @@ def shortrange_gravity_cells(
     periodic: bool = True,
     with_potential: bool = False,
     n_targets: int | None = None,
+    backend: str = "xla",
+    targets=None,
+    interpret: bool = False,
 ):
     """acc[N,3] (no G factor), erfc-truncated, zero beyond rcut.
     with_potential additionally returns the erfc-truncated softened
     potential [G2: potential.c with PMGRID]. ``n_targets``: only the
-    first n rows are targets (SPMD slab prefix; ghosts source only)."""
+    first n rows are targets (SPMD slab prefix; ghosts source only).
+
+    ``backend``: "xla" (the blocked gather below, the plain reference) or
+    "triton" (ops.cell_pairs; needs a power-of-two capacity). ``targets``
+    ([N] bool, None = all alive) lets the kernel skip cells without a
+    target; rows outside it are unspecified. ``interpret`` runs the
+    kernel in the Pallas interpreter (CPU tests)."""
     from gadget_leicester_tpu.ops.gravity_direct import shortrange_trunc_pot
     from gadget_leicester_tpu.ops.softening import grav_pot
+    nt = pos.shape[0] if n_targets is None else n_targets
+    if backend == "triton":
+        from gadget_leicester_tpu.ops.cell_pairs import \
+            shortrange_gravity_kernel
+        tgt = alive if targets is None else targets & alive
+        tgt = tgt & (jnp.arange(pos.shape[0]) < nt)
+        res = shortrange_gravity_kernel(cl, pos, mass, soft, alive, tgt,
+                                        asmth, rcut,
+                                        with_potential=with_potential,
+                                        interpret=interpret)
+        if with_potential:
+            return (jnp.where(alive[:nt, None], res[0][:nt], 0.0),
+                    jnp.where(alive[:nt], res[1][:nt], 0.0))
+        return jnp.where(alive[:nt, None], res[:nt], 0.0)
     src_mass = jnp.where(alive, mass, 0.0)
 
     def pair_fn(idx, tp, cand):
@@ -65,14 +90,13 @@ def shortrange_gravity_cells(
         fac = grav_fac(r, h) * shortrange_trunc(r, asmth)
         fac = jnp.where(r < rcut, fac, 0.0)
         w = sm * fac
-        acc = -jnp.einsum("bc,bcd->bd", w, dx)
+        acc = -jnp.einsum("bc,bcd->bd", w, dx, precision=HIGHEST)
         if with_potential:
             pw = grav_pot(r, h) * shortrange_trunc_pot(r, asmth)
             pw = jnp.where((r < rcut) & (r > 0), pw, 0.0)
             return (acc, jnp.sum(sm * pw, axis=-1))
         return (acc,)
 
-    nt = pos.shape[0] if n_targets is None else n_targets
     if with_potential:
         acc, pot = apply_pairwise(cl, pos, pair_fn, block=block,
                                   n_targets=n_targets)

@@ -1,9 +1,9 @@
-"""Cell-list neighbour infrastructure — the TPU-native replacement for the
+"""Cell-list neighbour infrastructure — the array-program replacement for the
 reference's tree-walk neighbour search [G2: ngb.c ::
 ngb_treefind_variable()/ngb_treefind_pairs()].
 
 The reference finds SPH neighbours by walking the gravity octree with
-per-particle pointer chasing. TPU-first redesign (BASELINE.json north star:
+per-particle pointer chasing. Redesign (BASELINE.json north star:
 "sorted cell lists"):
 
 * bin particles into a uniform grid with FIXED per-cell capacity
@@ -12,7 +12,8 @@ per-particle pointer chasing. TPU-first redesign (BASELINE.json north star:
 * particles sorted by cell id (``jax.lax.sort`` = the Morton/PH-order
   analog of [G2: peano.c :: peano_hilbert_order()] for cache locality);
 * interactions evaluated target-block x 27-stencil-candidates as wide
-  masked vector ops — every op static-shape, VPU-friendly.
+  masked vector ops (XLA path) or by the GPU cell-pair kernel
+  (ops.cell_pairs) — every op static-shape.
 
 The same structure serves SPH density (gather), SPH hydro (symmetric
 pairs, cell >= global max h) and TreePM short-range gravity (cell >= rcut).
@@ -39,8 +40,7 @@ class CellList:
     inv_cell: jnp.ndarray   # [3] 1/cell_size
     # [N] int32 flat slot index into cells.reshape(-1): gslot[p] such that
     # cells.reshape(-1)[gslot[p]] == p (-1 = dead/dropped). Lets merges be
-    # one row GATHER per particle instead of per-component scatters
-    # (measured 32 ms vs 105 ms at 4.2M for the 3-component SR merge).
+    # one row GATHER per particle instead of per-component scatters.
     gslot: jnp.ndarray
     n_cells: int            # STATIC per-axis count — int (cube) or (nx,ny,nz)
     periodic: bool          # STATIC — bool or per-axis (px,py,pz) tuple
@@ -52,19 +52,6 @@ jax.tree_util.register_dataclass(
                  "inv_cell", "gslot"],
     meta_fields=["n_cells", "periodic"],
 )
-
-
-def merge_rows(out, cl: CellList, n_rows: int, n_p: int, row0: int = 0):
-    """Merge a kernel output [C, K, cap] back to particles as [N, n_rows]
-    via ONE row gather over ``gslot`` (rows row0..row0+n_rows). Dead or
-    capacity-dropped particles get zero rows."""
-    c, _, cap = out.shape
-    rows = out[:, row0:row0 + n_rows, :].transpose(0, 2, 1).reshape(
-        -1, n_rows)
-    rows = jnp.concatenate(
-        [rows, jnp.zeros((1, n_rows), rows.dtype)], axis=0)
-    gidx = jnp.where(cl.gslot >= 0, cl.gslot, c * cap)
-    return jnp.take(rows, gidx, axis=0)
 
 
 def _axes3(v):

@@ -46,10 +46,7 @@ def _cic_weights8(pos, box: float, n: int):
 def cic_deposit(pos, weight, box: float, n: int):
     """Cloud-in-cell mass assignment onto an [n,n,n] periodic mesh.
 
-    Eight per-corner point scatter-adds — measured the FASTEST XLA form
-    on TPU: a single [N,8]-row scatter is 6% slower (scatter cost scales
-    with total updates, unlike gathers), and a windowed [N,2,2,2]
-    scatter is 59x slower (BASELINE.md)."""
+    Eight per-corner point scatter-adds (atomic adds on the GPU)."""
     f = pos.dtype
     u = pos * (n / box)
     i0 = jnp.floor(u).astype(jnp.int32)
@@ -80,9 +77,7 @@ def cic_gather_vec(field, pos, box: float, n: int):
     The field is re-packed once so each cell's row carries its full
     2x2x2 corner neighbourhood ([n,n,n,8*C], built with eight rolls),
     and the per-particle interpolation is then ONE [8*C]-row gather —
-    8x fewer gather ops than per-corner reads (the per-op overhead
-    dominates on TPU; a [N,2,2,2,C] windowed gather materialises a
-    padded 17 GB buffer and OOMs, see BASELINE.md)."""
+    8x fewer gather ops than per-corner reads."""
     c = field.shape[-1]
     i0, w = _cic_weights8(pos, box, n)
     parts = []
@@ -125,8 +120,7 @@ def greens_function(n: int, box: float, asmth_grid: float, dtype=jnp.float32):
     return jnp.where(k2 > 0, g, 0.0)
 
 
-@partial(hybrid_jit, static_argnames=("n", "gradient", "with_potential",
-                                      "return_field"))
+@partial(hybrid_jit, static_argnames=("n", "gradient", "with_potential"))
 def pm_forces_periodic(
     pos,
     mass,
@@ -136,8 +130,6 @@ def pm_forces_periodic(
     asmth_grid: float = ASMTH,
     gradient: str = "fd4",
     with_potential: bool = False,
-    return_field: bool = False,
-    rho_grid=None,
 ):
     """Long-range accelerations (no G factor), periodic box.
 
@@ -146,19 +138,11 @@ def pm_forces_periodic(
     more accurate at the Nyquist end).
     Returns acc[N,3], or (acc, pot[N]) when with_potential (sharing the
     deposit + forward FFT — the potential is a free CIC gather of phi).
-    ``return_field``: skip the per-particle gather and return the mesh
-    force stack [n,n,n,3(+1)] instead — the cell-tile gather
-    (ops.pm_tiles.pm_gather_tiles) interpolates it on TPU.
     """
     f = pos.dtype
     posw = jnp.mod(pos, box)
-    if rho_grid is not None:
-        # caller supplied the mass mesh (e.g. the cell-tile deposit
-        # ops.pm_tiles.pm_deposit_tiles — 132 ms vs 335 ms at 4.2M)
-        rho = rho_grid
-    else:
-        m = jnp.where(alive, mass, 0.0).astype(f)
-        rho = cic_deposit(posw, m, box, n)     # mass mesh (not density; the
+    m = jnp.where(alive, mass, 0.0).astype(f)
+    rho = cic_deposit(posw, m, box, n)     # mass mesh (not density; the
     # 4 pi G/k^2 Green's fn absorbs the cell volume via the DFT convention:
     # phi_k = G(k) rho_k / V_cell ... we fold constants below.
     rho_k = jnp.fft.rfftn(rho)
@@ -188,8 +172,6 @@ def pm_forces_periodic(
     if with_potential:
         comp.append(phi)  # fold phi into the vector gather (one pass)
     force = jnp.stack(comp, axis=-1)
-    if return_field:
-        return force
     out = cic_gather_vec(force, posw, box, n)
     acc = jnp.where(alive[:, None], out[:, :3], 0.0)
     if with_potential:

@@ -10,6 +10,12 @@ the full O(N^2) product. Requirements:
 The adaptive-h loop caps h at the cell size; the caller watches the cap /
 overflow flags and rebuilds with larger cells (recompute-bigger fallback,
 SURVEY.md §5).
+
+``backend="xla"`` evaluates the sums as blocked gathers (the plain
+reference); ``backend="triton"`` runs the ops.cell_pairs kernel on the same
+cell list (power-of-two capacity). ``targets`` (bool, None = all gas)
+restricts which rows are solved; the kernel skips cells without one.
+``interpret`` runs the kernel in the Pallas interpreter (CPU tests).
 """
 
 from __future__ import annotations
@@ -31,6 +37,9 @@ from gadget_leicester_tpu.ops.sph_kernels import (kernel_dw_dr,
 
 def _min_image(dx, box):
     return dx - box * jnp.round(dx / box)
+
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @partial(hybrid_jit, static_argnames=("block", "periodic", "n_targets"))
@@ -64,7 +73,8 @@ def density_sums_cells(
         rinv = jnp.where(r > 0, 1.0 / jnp.maximum(r, 1e-37), 0.0)
         fac = sm * dwdr * rinv
         divv = -jnp.sum(fac * jnp.sum(dv * dx, axis=-1), axis=-1)
-        rot = jnp.einsum("bc,bcd->bd", fac, jnp.cross(dv, dx))
+        rot = jnp.einsum("bc,bcd->bd", fac, jnp.cross(dv, dx),
+                         precision=HIGHEST)
         return rho, drho_dh, divv, rot
 
     return apply_pairwise(cl, pos, pair_fn, block=block, n_targets=n_targets)
@@ -77,28 +87,39 @@ def density_adaptive_cells(
     box: float = 0.0, periodic: bool = False,
     block: int = 256, max_iters: int = 40,
     n_targets: int | None = None,
+    backend: str = "xla", targets=None, interpret: bool = False,
 ) -> DensityResult:
     """Adaptive-h solve; with ``n_targets``, only the first n rows are
-    solved (outputs sized n_targets); all rows source the sums."""
+    solved (outputs sized n_targets); all rows source the sums. Rows
+    outside ``targets`` come back with rho == 0."""
     nt = pos.shape[0] if n_targets is None else n_targets
-
-    def sweep(h):
-        return density_sums_cells(cl, pos, vel, mass, h, gas_mask,
-                                  box=box, block=block, periodic=periodic,
-                                  n_targets=n_targets)
+    solve_mask = gas_mask[:nt]
+    if targets is not None:
+        solve_mask = solve_mask & targets[:nt]
+    if backend == "triton":
+        from gadget_leicester_tpu.ops.cell_pairs import density_sweep_kernel
+        sweep = density_sweep_kernel(cl, pos, vel, mass, gas_mask,
+                                     solve_mask, interpret=interpret)
+    else:
+        def sweep(h):
+            return density_sums_cells(cl, pos, vel, mass, h, gas_mask,
+                                      box=box, block=block,
+                                      periodic=periodic, n_targets=n_targets)
 
     return density_adaptive_generic(
-        sweep, mass[:nt], hsml0[:nt], gas_mask[:nt], des_num_ngb, max_dev,
+        sweep, mass[:nt], hsml0[:nt], solve_mask, des_num_ngb, max_dev,
         min_hsml=min_hsml, max_hsml=max_hsml, max_iters=max_iters)
 
 
-@partial(hybrid_jit, static_argnames=("block", "periodic", "n_targets"))
+@partial(hybrid_jit, static_argnames=("block", "periodic", "n_targets",
+                                      "backend", "visc_const", "interpret"))
 def hydro_force_cells(
     cl: CellList, pos, vel, mass, hsml, rho, pressure, dhsml_factor,
     div_vel, curl_vel, gas_mask, visc_const: float,
     box: float = 0.0, periodic: bool = False, block: int = 256,
     hubble_a2_flow: float = 0.0, hubble_a2_norm: float = 1.0,
     fac_mu: float = 1.0, n_targets: int | None = None,
+    backend: str = "xla", targets=None, interpret: bool = False,
 ) -> HydroResult:
     """Cell-list version of [G2: hydra.c :: hydro_evaluate()]. With
     ``n_targets`` only the first n rows are targets (outputs sized n);
@@ -147,14 +168,24 @@ def hydro_force_cells(
         hfc = hfc_visc + sm * (tpor2[:, None] * dwk_i + spor2 * dwk_j) * rinv
         hfc = jnp.where(inside, hfc, 0.0)
         hfc_visc = jnp.where(inside, hfc_visc, 0.0)
-        acc = -jnp.einsum("bc,bcd->bd", hfc, dx)
+        acc = -jnp.einsum("bc,bcd->bd", hfc, dx, precision=HIGHEST)
         dt_ent = 0.5 * jnp.sum(hfc_visc * vdotr2, axis=-1)
         msv = jnp.max(jnp.where(inside, vsig, 0.0), axis=-1)
         return acc, dt_ent, msv
 
-    acc, dt_ent, msv = apply_pairwise(cl, pos, pair_fn, block=block,
-                                      n_targets=n_targets)
     nt = pos.shape[0] if n_targets is None else n_targets
+    if backend == "triton":
+        from gadget_leicester_tpu.ops.cell_pairs import hydro_sums_kernel
+        tgt = gas_mask if targets is None else gas_mask & targets
+        tgt = tgt & (jnp.arange(pos.shape[0]) < nt)
+        acc, dt_ent, msv = hydro_sums_kernel(
+            cl, pos, vel, src_mass, hsml, rho, p_over_rho2, c_snd, balsara,
+            gas_mask, tgt, visc_const, hubble_a2_flow, fac_mu,
+            interpret=interpret)
+        acc, dt_ent, msv = acc[:nt], dt_ent[:nt], msv[:nt]
+    else:
+        acc, dt_ent, msv = apply_pairwise(cl, pos, pair_fn, block=block,
+                                          n_targets=n_targets)
     dt_ent = dt_ent * GAMMA_MINUS1 / (
         hubble_a2_norm * rho_safe[:nt]**GAMMA_MINUS1)
     gm = gas_mask[:nt]

@@ -2,8 +2,8 @@
 
 Rebuild of [G2: density.c :: density()/density_evaluate()] and
 [G2: hydra.c :: hydro_force()/hydro_evaluate()] as row-blocked, masked,
-static-shape batched ops. At gassphere scale (~1.5k gas) all-pairs on the
-VPU beats any neighbour structure; at larger N the cell-list kernels in
+static-shape batched ops. At gassphere scale (~1.5k gas) all-pairs
+beats any neighbour structure; at larger N the cell-list kernels in
 ``ops.neighbors`` reuse the same per-pair math.
 
 The adaptive smoothing-length solve — the reference's per-particle
@@ -27,6 +27,9 @@ import jax.numpy as jnp
 
 from gadget_leicester_tpu.core.config import GAMMA, GAMMA_MINUS1
 from gadget_leicester_tpu.ops.sph_kernels import kernel_dw_dr, kernel_w_and_dwdh
+
+# f32 pair sums: no TF32 on GPU tensor cores
+HIGHEST = jax.lax.Precision.HIGHEST
 
 NORM_COEFF = 4.0 * jnp.pi / 3.0  # effective-Ngb normalisation [G2: density.c]
 
@@ -79,7 +82,7 @@ def density_sums(pos, vel, mass, hsml, gas_mask, box=0.0, block=512, periodic=Fa
         divv = -jnp.sum(fac * jnp.sum(dv * dx, axis=-1), axis=-1)
         # rot = sum fac * (dv x dx)  [G2: density_evaluate rot accumulation]
         cross = jnp.cross(dv, dx)
-        rot = jnp.einsum("bn,bnc->bc", fac, cross)
+        rot = jnp.einsum("bn,bnc->bc", fac, cross, precision=HIGHEST)
         return rho, drho_dh, divv, rot
 
     rho, drho_dh, divv, rot = jax.lax.map(one_block, jnp.arange(nb))
@@ -331,7 +334,7 @@ def hydro_force(
         hfc = hfc_visc + m * (tpor2[:, None] * dwk_i + p_over_rho2[None, :] * dwk_j) * rinv
         hfc = jnp.where(inside, hfc, 0.0)
         hfc_visc = jnp.where(inside, hfc_visc, 0.0)
-        acc = -jnp.einsum("bn,bnc->bc", hfc, dx)
+        acc = -jnp.einsum("bn,bnc->bc", hfc, dx, precision=HIGHEST)
         dt_ent = 0.5 * jnp.sum(hfc_visc * vdotr2, axis=-1)
         msv = jnp.max(jnp.where(inside, vsig, 0.0), axis=-1)
         return acc, dt_ent, msv

@@ -11,7 +11,7 @@ GADGET normalises the spline so that W has compact support radius exactly
 
 All functions are branch-free (jnp.where) and broadcast over arbitrary
 shapes — the reference evaluates these scalar-at-a-time inside neighbour
-loops; here they vectorise over full [N, K] neighbour blocks on the VPU.
+loops; here they vectorise over full [N, K] neighbour blocks.
 """
 
 from __future__ import annotations

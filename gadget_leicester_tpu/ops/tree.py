@@ -1,4 +1,4 @@
-"""Barnes-Hut octree gravity, TPU-native — the rebuild of the reference's
+"""Barnes-Hut octree gravity as array programs — the rebuild of the reference's
 largest component [G2: forcetree.c :: force_treebuild() /
 force_treeevaluate()], redesigned from pointer-chasing to batched
 static-shape array programs (SURVEY.md §7 hard part 1; BASELINE.json north
@@ -45,10 +45,12 @@ import jax.numpy as jnp
 
 from gadget_leicester_tpu.ops.softening import grav_fac, grav_pot
 
-# sentinel beyond any valid 30-bit key — a PYTHON int: a module-level
-# jnp scalar is a concrete device Array that gets captured and hoisted as
-# an executable parameter, which this environment's pjit fast path fails
-# to re-supply on cached calls (see core/cosmology._GL note)
+# f32 pair sums: no TF32 on GPU tensor cores
+HIGHEST = jax.lax.Precision.HIGHEST
+
+# sentinel beyond any valid 30-bit key — a PYTHON int, so it inlines into
+# the HLO instead of being captured as a device Array (see
+# core/cosmology._GL note)
 BIGKEY = 2**30
 
 
@@ -203,12 +205,12 @@ def _eval_monopole(tpos, tsoft, node_com, node_mass, node_soft, valid,
     h = jnp.maximum(tsoft[:, None], node_soft[None, :])
     m = jnp.where(valid[None, :], node_mass[None, :], 0.0)
     fac = grav_fac(r, h)
-    acc = -jnp.einsum("bf,bfc->bc", m * fac, dx)
+    acc = -jnp.einsum("bf,bfc->bc", m * fac, dx, precision=HIGHEST)
     pot = jnp.sum(m * jnp.where(r > 0, grav_pot(r, h), 0.0), axis=-1)
     if pctx is not None:
         from gadget_leicester_tpu.ops.ewald import ewald_correction_jnp
         ca, cp = ewald_correction_jnp(dx, box, table)
-        acc = acc + jnp.einsum("bf,bfc->bc", m, ca)
+        acc = acc + jnp.einsum("bf,bfc->bc", m, ca, precision=HIGHEST)
         pot = pot + jnp.sum(m * cp, axis=-1)
     return acc, pot
 
@@ -400,13 +402,15 @@ def _eval_pointset(tpos, tsoft, ppos, pmass, psoft, pctx=None):
     r = jnp.sqrt(jnp.sum(dx * dx, axis=-1))
     h = jnp.maximum(tsoft[:, None], psoft[None, :])
     fac = grav_fac(r, h)
-    acc = -jnp.einsum("bp,bpc->bc", pmass[None, :] * fac, dx)
+    acc = -jnp.einsum("bp,bpc->bc", pmass[None, :] * fac, dx,
+                      precision=HIGHEST)
     pot = jnp.sum(pmass[None, :] * jnp.where(r > 0, grav_pot(r, h), 0.0),
                   axis=-1)
     if pctx is not None:
         from gadget_leicester_tpu.ops.ewald import ewald_correction_jnp
         ca, cp = ewald_correction_jnp(dx, box, table)
         m = pmass[None, :]
-        acc = acc + jnp.einsum("bp,bpc->bc", m * jnp.ones_like(r), ca)
+        acc = acc + jnp.einsum("bp,bpc->bc", m * jnp.ones_like(r), ca,
+                             precision=HIGHEST)
         pot = pot + jnp.sum(m * cp, axis=-1)
     return acc, pot

@@ -2,8 +2,7 @@
 reference's FFTW-MPI slab PM [G2: pm_periodic.c :: pmforce_periodic(),
 slabs_per_task / ghost-layer exchange].
 
-TPU-first redesign (explicit shard_map + ICI collectives, not GSPMD
-guesswork):
+Redesign (explicit shard_map + collectives, not GSPMD guesswork):
 
 * deposit: each shard CIC-deposits its OWN particles (whatever slab they
   fall in) onto a full local mesh, then one ``psum_scatter`` reduces and
@@ -56,8 +55,7 @@ def _pencil_rfft3(local, axis_name, n_shards):
     FULL fft (not rfft) z axis, keeping complex [n/D, n, n] -> after
     exchange [n, n, n/D]. The redundant negative-kz half costs 2x FFT
     work but keeps every axis evenly divisible — at PM mesh sizes the
-    FFTs are <5%% of the PM step (BASELINE.md component budget), so the
-    simplicity wins on TPU.
+    FFTs are a small part of the PM step, so the simplicity wins.
     """
     f = jnp.fft.fft(jnp.fft.fft(local.astype(jnp.complex64), axis=2), axis=1)
     # re-pencil: split kz (axis 2) across shards, concatenate x (axis 0)

@@ -3,8 +3,8 @@ the reference's spatial domain decomposition and ghost exchange
 [G2: domain.c :: domain_Decomposition(), domain_exchangeParticles();
 gravtree.c / density.c / hydra.c export-evaluate-import loops].
 
-Design (TPU-first; explicit shard_map + ICI collectives — no GSPMD
-all-gathers of particle sources):
+Design (explicit shard_map + collectives — no GSPMD all-gathers of
+particle sources):
 
 * **Ownership**: periodic x-slabs, one per device of the ``shard`` mesh
   axis. Every shard holds a FIXED-capacity chunk of each SimState array
@@ -22,8 +22,9 @@ all-gathers of particle sources):
   hydro — exactly the reference's two communication phases.
 * **Forces**: each shard builds a LOCAL anisotropic cell grid over
   [x0-range, x1+range) x [0, box)^2 (clamped in x, periodic in y/z) and
-  runs the cells-backend kernels with targets = the owned prefix and
-  ghosts as sources only (ops.neighbors per-axis grids, n_targets).
+  runs the same cell-list pair sums as one device (the GPU kernel or the
+  XLA path, ops.cell_pairs.pair_backend) with targets = the owned prefix
+  and ghosts as sources only (ops.neighbors per-axis grids, n_targets).
 * **PM**: parallel.pm_sharded.pm_local_forces (local deposit +
   psum_scatter to slabs + pencil FFT + all_gather of the force mesh).
 * **Global control**: sync tick via pmin; PM rms-displacement via psum.
@@ -51,8 +52,12 @@ from gadget_leicester_tpu.core import timeline
 from gadget_leicester_tpu.models import integrate
 from gadget_leicester_tpu.models.forces import (comoving_factors,
                                                 softening_table)
+from gadget_leicester_tpu.ops.cell_pairs import kernel_capacity, pair_backend
 from gadget_leicester_tpu.ops.softening import SOFTFAC
 from gadget_leicester_tpu.parallel.mesh import AXIS
+
+# f32 pair sums: no TF32 on GPU tensor cores
+HIGHEST = jax.lax.Precision.HIGHEST
 
 _P_FIELDS = ["pos", "vel", "mass", "ptype", "pid", "acc", "acc_pm",
              "pot", "pot_pm", "old_acc", "ti_begstep", "ti_endstep"]
@@ -267,95 +272,53 @@ def state_specs(state: SimState):
 # ---------------------------------------------------------------------------
 # Static slab-grid geometry + the per-shard grid cache
 # ---------------------------------------------------------------------------
-def _occ_grid_static(n_cat, span_x, reach, cap, nyz0, box):
-    """See make_spmd_step._occ_grid (module-level so the cache allocator
-    derives identical shapes)."""
-    def _nx(nyz):
-        return max(1, int(span_x / (box / nyz)))
-    nyz_e = nyz0
-    while (nyz_e > 4
-           and n_cat / (_nx(nyz_e - 1) * (nyz_e - 1) ** 2) <= 0.8 * cap):
-        nyz_e -= 1
-    return _nx(nyz_e), nyz_e
-
-
-def _occ_cap_static(n_cat, n_cells_est, base):
-    """See make_spmd_step._occ_cap."""
-    if base > 0:
-        return max(128, ((base + 127) // 128) * 128)
-    est = n_cat / max(1, n_cells_est)
-    return max(128, min(512, (-(-int(est / 0.8) // 128)) * 128))
-
-
 def slab_grid_geom(cfg: SimConfig, opts: SimOptions, d: int, box: float,
-                   w_min: float, w_max: float, use_pallas: bool,
-                   n_loc: int, ng_loc: int) -> dict:
-    """ALL static geometry of the per-shard slab grids, shared by the
-    step factory and the cache allocator (shapes must match exactly —
-    lax.cond pytrees). Returns a dict; see make_spmd_step for the
-    meaning of each number [G2: domain.c + forcetree.c rebuild cadence
-    — the cache IS the rebuild cadence]."""
-    from gadget_leicester_tpu.models.grids import (KAPPA_SPH,
-                                                   SOFT_RCUT_FRAC,
-                                                   sph_blocks_geometry)
+                   w_min: float, n_loc: int) -> dict:
+    """Static geometry of the per-shard short-range gravity grid, shared by
+    the step factory and the cache allocator (shapes must match exactly —
+    lax.cond pytrees) [G2: domain.c + forcetree.c rebuild cadence — the
+    cache IS the rebuild cadence]. The capacity follows the pair backend
+    (ops.cell_pairs.pair_backend)."""
+    from gadget_leicester_tpu.models.grids import SOFT_RCUT_FRAC
+    from gadget_leicester_tpu.ops.cell_pairs import (kernel_capacity,
+                                                     pair_backend)
     from gadget_leicester_tpu.ops.pm import ASMTH, RCUT
 
     g_pm = opts.pmgrid
     asmth_len = ASMTH * box / g_pm
     rcut = RCUT * asmth_len
     nyz = max(3, int(box / rcut))
-    out = dict(rcut=rcut, nyz=nyz)
-
-    # gravity short-range grid (pallas branch of _gravity)
     gcap_g = _ghost_cap(n_loc, rcut, w_min, opts.spmd_ghost_frac)
-    if use_pallas:
-        n_est = int(SLAB_FILL * n_loc * (1.0 + 3.0 * rcut / w_min))
-        nx0 = max(1, int((w_min + 2.0 * rcut) / (box / nyz)))
-        cap_sr = _occ_cap_static(n_est, nx0 * nyz * nyz, opts.sr_capacity)
-        nx, nyz_g = _occ_grid_static(n_est, w_min + 2.0 * rcut, rcut,
-                                     cap_sr, nyz, box)
+    nx = max(1, int((w_min + 2.0 * rcut) / rcut))
+    if pair_backend(dtype=opts.dtype) == "triton":
+        # REAL-count estimate (slot counts carry the to_spmd fill padding
+        # and the ghost buffers' dead slots)
+        n_est = SLAB_FILL * n_loc * (1.0 + 3.0 * rcut / w_min)
+        cap_sr = kernel_capacity(n_est / (nx * nyz * nyz), opts.sr_capacity)
     else:
-        nx = max(1, int((w_min + 2.0 * rcut) / rcut))
-        nyz_g = nyz
         n_cat = n_loc + 2 * gcap_g
         cap_sr = opts.sr_capacity if opts.sr_capacity > 0 else max(
             64, -(-3 * n_cat // (nx * nyz * nyz) // 8) * 8)
     edge_x_min = (w_min + 2.0 * rcut) / nx
-    edge_yz = box / nyz_g
-    margin_g = max(min(edge_x_min, edge_yz) - rcut,
-                   SOFT_RCUT_FRAC * rcut)
-    out.update(gcap_g=gcap_g, cap_sr=cap_sr, nx=nx, nyz_g=nyz_g,
-               margin_g=margin_g)
-
-    # SPH block grid (_sph_blocks geometry)
-    n_glob = max(1, int(SLAB_FILL * ng_loc * d))
-    nb_g, subcap = sph_blocks_geometry(cfg, opts, n_glob)
-    nb_g = max(nb_g, int(np.ceil(1.02 * box / (2.0 * w_min))))
-    subcell = box / (2 * nb_g)
-    nbx = max(1, int(np.ceil((w_max + 2.05 * subcell)
-                             / (2.0 * subcell))))
-    gcap_s = _ghost_cap(ng_loc, subcell, w_min, opts.spmd_ghost_frac)
-    out.update(nb_g=nb_g, subcap=subcap, subcell=subcell, nbx=nbx,
-               gcap_s=gcap_s, margin_s=2.0 * KAPPA_SPH * subcell,
-               max_hsml=(1.0 - 2.0 * KAPPA_SPH) * subcell)
-    return out
+    margin_g = max(min(edge_x_min, box / nyz) - rcut, SOFT_RCUT_FRAC * rcut)
+    return dict(rcut=rcut, gcap_g=gcap_g, cap_sr=cap_sr, nx=nx, nyz_g=nyz,
+                margin_g=margin_g)
 
 
 def make_spmd_grid_cache(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
-                         caps, edges, domain=None, with_sph: bool = True):
+                         caps, edges, domain=None):
     """Allocate the (invalid) per-shard grid cache for the slab step —
     the SPMD port of models.grids.make_grid_cache. Every leaf carries a
     leading shard dim d (spec P(AXIS)); the local view inside shard_map
     is [1, ...] and the step squeezes/unsqueezes it.
 
     Cached per shard: the gravity cell list + its ghost-strip row
-    selection, and the SPH even/odd block lists + their ghost rows.
-    Ghost ROWS are part of the cache because the cell lists index the
-    concatenated [locals | ghosts] arrays: reusing assignments requires
-    the ghost buffer slot -> particle map to stay fixed between rebuilds
-    [G2: forcetree.c drifts node centres between rebuilds; export lists
-    are regenerated — here the export SELECTION is frozen with the grid
-    and only the VALUES are re-gathered each step]."""
+    selection. Ghost ROWS are part of the cache because the cell list
+    indexes the concatenated [locals | ghosts] arrays: reusing assignments
+    requires the ghost buffer slot -> particle map to stay fixed between
+    rebuilds [G2: forcetree.c drifts node centres between rebuilds; export
+    lists are regenerated — here the export SELECTION is frozen with the
+    grid and only the VALUES are re-gathered each step]."""
     from gadget_leicester_tpu.models.grids import GridCache, _empty_cl
 
     d = mesh.shape[AXIS]
@@ -363,15 +326,10 @@ def make_spmd_grid_cache(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
     box = float(cfg.box_size) if per else float(domain[1])
     edges = np.asarray(edges, np.float64)
     w_min = float(np.min(np.diff(edges)))
-    w_max = float(np.max(np.diff(edges)))
-    use_pallas = opts.use_pallas == "on" or (
-        opts.use_pallas == "auto" and jax.default_backend() == "tpu")
     cap_g, cap_r = caps
     n_loc = cap_g + cap_r
-    geo = slab_grid_geom(cfg, opts, d, box, w_min, w_max, use_pallas,
-                         n_loc, cap_g)
+    geo = slab_grid_geom(cfg, opts, d, box, w_min, n_loc)
     f = jnp.float64 if opts.dtype == "f64" else jnp.float32
-    pyz = per
 
     def rep(tree):
         return jax.tree_util.tree_map(
@@ -380,33 +338,13 @@ def make_spmd_grid_cache(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
     nx, nyz_g, cap_sr = geo["nx"], geo["nyz_g"], geo["cap_sr"]
     n_cat_g = n_loc + 2 * geo["gcap_g"]
     grav_cl = _empty_cl(nx * nyz_g * nyz_g, cap_sr, n_cat_g,
-                        (nx, nyz_g, nyz_g), (False, pyz, pyz), f)
+                        (nx, nyz_g, nyz_g), (False, per, per), f)
     grav = rep((grav_cl, jnp.full((2 * geo["gcap_g"],), -1, jnp.int32)))
-
-    sph = None
-    if with_sph:
-        from gadget_leicester_tpu.ops.sph_blocks import _odd3
-        nb3 = (geo["nbx"], geo["nb_g"], geo["nb_g"])
-        per3 = (False, pyz, pyz)
-        nbo3 = _odd3(nb3, per3)
-        lanes = 8 * geo["subcap"]
-        n_cat_s = cap_g + 2 * geo["gcap_s"]
-        fine = 8 * nb3[0] * nb3[1] * nb3[2]
-        cl_e = _empty_cl(nb3[0] * nb3[1] * nb3[2], lanes, n_cat_s, nb3,
-                         per3, f, counts_size=fine)
-        cl_o = _empty_cl(nbo3[0] * nbo3[1] * nbo3[2], lanes, n_cat_s,
-                         nbo3, per3, f, counts_size=fine)
-        sph = rep((cl_e, cl_o,
-                   jnp.full((2 * geo["gcap_s"],), -1, jnp.int32)))
-
     return GridCache(
-        grav=grav, sph=sph,
+        grav=grav,
         grav_disp=jnp.zeros((d,), jnp.float32),
-        sph_disp=jnp.zeros((d,), jnp.float32),
         grav_valid=jnp.zeros((d,), bool),
-        sph_valid=jnp.zeros((d,), bool),
         grav_count=jnp.zeros((d,), jnp.int32),
-        sph_count=jnp.zeros((d,), jnp.int32),
     )
 
 
@@ -598,7 +536,6 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
         edges = np.linspace(0.0, box, d + 1)
     edges = np.asarray(edges, np.float64)
     w_min = float(np.min(np.diff(edges)))
-    w_max = float(np.max(np.diff(edges)))
     edges_j = jnp.asarray(edges, jnp.float32)
     g_pm = opts.pmgrid
     asmth_len = ASMTH * box / g_pm
@@ -606,14 +543,10 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
     if w_min < rcut:
         raise ValueError(f"min slab width {w_min:.1f} < rcut {rcut:.1f}: "
                          "fewer shards or finer PM mesh")
-    nyz = max(3, int(box / rcut))
-    # the SAME Pallas kernels as the single-chip hot path serve the slab
-    # domains (anisotropic grids: clamped x, periodic y/z) [G2: the
-    # reference's MPI ranks run the same force loops as serial]. CPU
-    # meshes (tests / opts.use_pallas="on" off-TPU) run interpret mode.
-    use_pallas = opts.use_pallas == "on" or (
-        opts.use_pallas == "auto" and jax.default_backend() == "tpu")
-    pallas_interp = jax.default_backend() != "tpu"
+    # the SAME pair sums as the single-device path serve the slab domains
+    # (anisotropic grids: clamped x, periodic y/z) [G2: the reference's MPI
+    # ranks run the same force loops as serial]
+    pairs = pair_backend(dtype=opts.dtype)
     pyz = per            # y/z cell-grid periodicity (vacuum: all clamped)
 
     def _wx(x):
@@ -638,37 +571,6 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
             (gx[:gcap] >= x0 - margin) & (gx[:gcap] < x0),
             (gx[gcap:] >= x1) & (gx[gcap:] < x1 + margin)])
         return gx, gvalid & ok
-
-    def _occ_grid(n_cat, span_x, reach, cap, nyz0):
-        """Coarsen the reach-fine (nx, nyz) slab grid until the mean
-        slot fill reaches ~0.8 of the Pallas lane cap — the
-        grav_grid_geometry tuning applied to the anisotropic slab
-        domain. Cell edges never shrink below ``reach``, so the
-        27-stencil always covers the interaction range; coarser cells
-        are always safe (more pairs scanned, none lost)."""
-        def _nx(nyz):
-            return max(1, int(span_x / (box / nyz)))
-        nyz_e = nyz0
-        while (nyz_e > 4
-               and n_cat / (_nx(nyz_e - 1) * (nyz_e - 1) ** 2)
-               <= 0.8 * cap):
-            nyz_e -= 1
-        return _nx(nyz_e), nyz_e
-
-    def _occ_cap(n_cat, n_cells_est, base):
-        """Lane capacity for the Pallas tiles: 128 when the reach-fine
-        grid's estimated mean fill allows it, auto-scaled in 128-lane
-        steps when even the FINEST grid packs more than ~0.8*128 slots
-        per cell (small boxes with large reach: pair tiles must hold
-        whole lattice planes). Clamped at 512 lanes — pair temporaries
-        grow as cap^2 and must stay inside the scoped-VMEM budget; the
-        sticky-overflow -> host-bump path covers anything deeper
-        [G2: gravtree.c realloc-on-overflow]. ``n_cat`` counts SLOTS
-        (dead padding included), so the estimate is conservative."""
-        if base > 0:
-            return max(128, ((base + 127) // 128) * 128)
-        est = n_cat / max(1, n_cells_est)
-        return max(128, min(512, (-(-int(est / 0.8) // 128)) * 128))
 
     def _migrate(st, me):
         p = st.p
@@ -737,8 +639,7 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
 
         # most sync points move NOBODY (a slab width is many step
         # displacements), yet the pack/ring/scatter machinery touches
-        # every field of every particle — 362 ms of the 1086 ms mesh=1
-        # step at 64^3 (tools/anatomy_spmd.py). Gate it on a GLOBAL
+        # every field of every particle. Gate it on a GLOBAL
         # any-hop predicate: psum makes the lax.cond branch uniform
         # across shards, so the ppermutes inside stay in lockstep
         # [G2: domain.c re-decomposes on a cadence, not every step —
@@ -755,8 +656,7 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
             # (n_move is psum'd, so the invalidation is shard-uniform)
             moved = n_move > 0
             grids = dataclasses.replace(
-                grids, grav_valid=grids.grav_valid & ~moved,
-                sph_valid=grids.sph_valid & ~moved)
+                grids, grav_valid=grids.grav_valid & ~moved)
         return dataclasses.replace(st, p=p_new, gas=gas_new, grids=grids,
                                    overflow_flags=flags)
 
@@ -813,8 +713,7 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
         # cadence of [G2: forcetree.c + domain.c]); the rebuild predicate
         # is psum'd so every shard takes the same branch (the ring
         # exchange itself runs every step, outside the cond).
-        geo = slab_grid_geom(cfg, opts, d, box, w_min, w_max, use_pallas,
-                             p.n_max, st.gas.n_gas_max)
+        geo = slab_grid_geom(cfg, opts, d, box, w_min, p.n_max)
         gcap = geo["gcap_g"]
         margin_g = geo["margin_g"]
         reach_w = rcut + margin_g
@@ -886,30 +785,16 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
         # add the fresh short-range term in-step (the single-chip analog
         # in forces._treepm_gravity) [G2: potential.c with PMGRID]
         want_sr_pot = opts.sinks or opts.cooling == "stamatellos"
-        if use_pallas:
-            from gadget_leicester_tpu.ops.pallas_cells import \
-                shortrange_gravity_pallas_dma9
-            with jax.named_scope("spmd_sr_kernel"):
-                res = shortrange_gravity_pallas_dma9(
-                    cat_pos, cat_mass, cat_soft, cat_alive, box=box,
-                    n_cells=(nx, nyz_g, nyz_g), capacity=cap_sr,
-                    asmth=asmth_len, rcut=rcut,
-                    periodic=(False, pyz, pyz), active=None, cl=cl,
-                    with_potential=want_sr_pot, interpret=pallas_interp)
-            if want_sr_pot:
-                acc_sr, pot_sr = res[0][:p.n_max], res[1][:p.n_max]
-            else:
-                acc_sr = res[0][:p.n_max]
-        elif want_sr_pot:
-            acc_sr, pot_sr = shortrange_gravity_cells(
+        # ghosts are SOURCES only: the kernel's target gate ends at the
+        # local block
+        cat_tgt = jnp.concatenate([active, jnp.zeros((2 * gcap,), bool)])
+        with jax.named_scope("spmd_sr_pairs"):
+            res = shortrange_gravity_cells(
                 cl, cat_pos, cat_mass, cat_soft, cat_alive,
                 asmth_len, rcut, box=box, periodic=per,
-                with_potential=True, n_targets=p.n_max)
-        else:
-            acc_sr = shortrange_gravity_cells(
-                cl, cat_pos, cat_mass, cat_soft, cat_alive,
-                asmth_len, rcut, box=box, periodic=per,
-                n_targets=p.n_max)
+                with_potential=want_sr_pot, n_targets=p.n_max,
+                backend=pairs, targets=cat_tgt)
+        acc_sr, pot_sr = res if want_sr_pot else (res, None)
         flags = st.overflow_flags | jnp.where(
             cl.overflow | ovf, jnp.int32(1), jnp.int32(0))
 
@@ -938,193 +823,11 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
                                 pot_pm=pot_pm_g, old_acc=old_acc)
         return dataclasses.replace(st, p=p, overflow_flags=flags), active
 
-    def _sph_blocks(st, me, x0, x1, xc, active):
-        """SPH on the BLOCK-packed kernels (the single-chip production
-        path, ops/sph_blocks) over an anisotropic slab grid: non-periodic
-        extended x covering [x0-Lf, x1+Lf], periodic y/z over the box
-        (vacuum: all clamped), uniform fine edge. Replaces the coarse
-        cell kernels on TPU — at 64^3 mesh=1 the cell SPH phase cost
-        371 ms vs the single-chip blocks path's 65 ms
-        [G2: density.c/hydra.c run the same loops on every MPI rank]."""
-        from gadget_leicester_tpu.ops.sph_blocks import (
-            build_block_lists, density_adaptive_blocks, hydro_force_blocks)
-
-        gas = st.gas
-        p = st.p
-        ng = gas.n_gas_max
-        fac = comoving_factors(cfg, st.ti_current)
-        gas_mask = p.alive[:ng] & (p.ptype[:ng] == 0)
-        active_g = active[:ng] & gas_mask
-        eps_gas = softening_table(cfg, fac.atime)[0]
-        min_hsml = cfg.min_gas_hsml_fractional * SOFTFAC * eps_gas
-
-        # global-count geometry: the SAME fine edge (and h cap) at every
-        # shard count, matching the single-chip blocks path (slot counts
-        # carry the to_spmd fill padding — scale by SLAB_FILL); shared
-        # with the cache allocator via slab_grid_geom
-        geo = slab_grid_geom(cfg, opts, d, box, w_min, w_max, use_pallas,
-                             p.n_max, ng)
-        nb_g, subcap = geo["nb_g"], geo["subcap"]
-        subcell = geo["subcell"]
-        max_hsml = geo["max_hsml"]
-        margin_s = geo["margin_s"]
-        reach = subcell
-        # static x block count covers the WIDEST slab; narrower slabs
-        # carry empty trailing blocks (skipped by the activity flags)
-        nbx = geo["nbx"]
-        nb3 = (nbx, nb_g, nb_g)
-        per3 = (False, pyz, pyz)
-        extent3 = np.asarray([2.0 * nbx * subcell, box, box], np.float64)
-
-        lpos = _dompos(p.pos[:ng])
-        if per:
-            lpos = lpos.at[:, 0].set(
-                _wrap_to_slab(jnp.mod(p.pos[:ng, 0], box), xc, box))
-        gcap = geo["gcap_s"]
-        h0 = jnp.minimum(gas.hsml, max_hsml)
-
-        # cached block lists + ghost-row selection (see _gravity; the
-        # strip reach = subcell already carries the 2*kappa slack over
-        # max_hsml, so cached selections stay valid within margin_s)
-        gr = st.grids
-        use_cache = gr is not None and gr.sph is not None
-        count_now = jnp.sum(gas_mask.astype(jnp.int32))
-        if use_cache:
-            cle_c, clo_c, rows_c = jax.tree_util.tree_map(
-                lambda x: x[0], gr.sph)
-            need_l = ((~gr.sph_valid[0])
-                      | (2.0 * gr.sph_disp[0] > margin_s)
-                      | (count_now != gr.sph_count[0]))
-            need = jax.lax.psum(need_l.astype(jnp.int32), AXIS) > 0
-            rows, ovf1 = jax.lax.cond(
-                need,
-                lambda _: _ghost_rows_select(_wx(p.pos[:ng, 0]), gas_mask,
-                                             x0, x1, reach, gcap),
-                lambda _: (rows_c, jnp.asarray(False)),
-                operand=None)
-        else:
-            need = None
-            rows, ovf1 = _ghost_rows_select(_wx(p.pos[:ng, 0]), gas_mask,
-                                            x0, x1, reach, gcap)
-
-        # ---- round 1: kinematic ghosts for the density solve ---------
-        with jax.named_scope("spmd_ghosts_sph1"):
-            ghosts, gv = _ghost_exchange_rows(
-                [p.pos[:ng], gas.vel_pred, p.mass[:ng]], gas_mask,
-                rows, gcap, d)
-        gpos, gvel, gmass = ghosts
-        gpos = _dompos(gpos)
-        gx_f, gv = _fix_ghost_x(gpos[:, 0], x0, x1, reach + margin_s,
-                                gv, gcap)
-        gpos = gpos.at[:, 0].set(gx_f)
-        cat_pos = jnp.concatenate([lpos, gpos])
-        cat_vel = jnp.concatenate([gas.vel_pred, gvel])
-        cat_mass = jnp.concatenate([p.mass[:ng], gmass])
-        cat_mask = jnp.concatenate([gas_mask, gv])
-        # ghosts are SOURCES only: the activity mask (target gate) ends
-        # at the local block
-        act_cat = jnp.concatenate(
-            [active_g, jnp.zeros((2 * gcap,), bool)])
-        h_cat = jnp.concatenate(
-            [h0, jnp.full((2 * gcap,), 1.0, h0.dtype)])
-
-        origin3 = jnp.stack([x0 - reach, jnp.float32(0.0),
-                             jnp.float32(0.0)]).astype(lpos.dtype)
-        with jax.named_scope("spmd_sph_build"):
-            def build_cls(_):
-                return build_block_lists(cat_pos, cat_mask, origin3,
-                                         jnp.asarray(extent3, lpos.dtype),
-                                         n_blocks=nb3, subcap=subcap,
-                                         periodic=per3)
-
-            if use_cache:
-                cls = jax.lax.cond(need, build_cls,
-                                   lambda _: (cle_c, clo_c), operand=None)
-            else:
-                cls = build_cls(None)
-        if use_cache:
-            st = dataclasses.replace(st, grids=dataclasses.replace(
-                gr,
-                sph=jax.tree_util.tree_map(lambda x: x[None],
-                                           (cls[0], cls[1], rows)),
-                sph_valid=jnp.ones((1,), bool),
-                sph_disp=jnp.where(need, 0.0, gr.sph_disp),
-                sph_count=jnp.full((1,), count_now, jnp.int32)))
-        with jax.named_scope("spmd_sph_density"):
-            dres, _ = density_adaptive_blocks(
-                cat_pos, cat_vel, cat_mass, h_cat, cat_mask,
-                des_num_ngb=cfg.des_num_ngb,
-                max_dev=cfg.max_num_ngb_deviation,
-                box=box, subcap=subcap, min_hsml=min_hsml,
-                max_hsml=max_hsml, periodic=per3,
-                interpret=pallas_interp, active=act_cat, cls=cls,
-                fine_edge=subcell)
-
-        rho = jnp.where(active_g, dres.rho[:ng], gas.density)
-        hsml = jnp.where(active_g, dres.hsml[:ng], gas.hsml)
-        dhf = jnp.where(active_g, dres.dhsml_factor[:ng],
-                        gas.dhsml_density_factor)
-        divv = jnp.where(active_g, dres.div_vel[:ng], gas.div_vel)
-        curlv = jnp.where(active_g, dres.curl_vel[:ng], gas.curl_vel)
-        nngb = jnp.where(active_g, dres.num_ngb_eff[:ng], gas.num_ngb)
-
-        if opts.isotherm_eqs:
-            pressure = gas.entropy_pred * rho
-        else:
-            pressure = gas.entropy_pred * rho**GAMMA
-        pressure = jnp.where(gas_mask, pressure, 0.0)
-
-        # ---- round 2: hydro ghosts (post-density fields) --------------
-        # the SAME row selection as round 1 (the cell lists index ghost
-        # slots; only field VALUES changed since the density pass)
-        with jax.named_scope("spmd_ghosts_sph2"):
-            ghosts2, gv2 = _ghost_exchange_rows(
-                [hsml, rho, pressure, dhf, divv, curlv], gas_mask,
-                rows, gcap, d)
-        g2h, g2rho, g2prs, g2dhf, g2div, g2curl = ghosts2
-        gv2 = gv2 & gv
-        with jax.named_scope("spmd_sph_hydro"):
-            hres = hydro_force_blocks(
-                cls, cat_pos, cat_vel, cat_mass,
-                jnp.concatenate([hsml, g2h]),
-                jnp.concatenate([rho, g2rho]),
-                jnp.concatenate([pressure, g2prs]),
-                jnp.concatenate([dhf, g2dhf]),
-                jnp.concatenate([divv, g2div]),
-                jnp.concatenate([curlv, g2curl]),
-                jnp.concatenate([gas_mask, gv2]),
-                visc_const=cfg.art_bulk_visc_const, box=box,
-                hubble_a2_flow=fac.hubble_a2_flow,
-                hubble_a2_norm=fac.hubble_a2_norm, fac_mu=fac.fac_mu,
-                interpret=pallas_interp, active=act_cat,
-                fine_edge=subcell)
-
-        hydro_acc = jnp.where(active_g[:, None], hres.acc[:ng],
-                              gas.hydro_acc)
-        dt_entropy = jnp.where(active_g, hres.dt_entropy[:ng],
-                               gas.dt_entropy)
-        if opts.isotherm_eqs:
-            dt_entropy = jnp.zeros_like(dt_entropy)
-        msv = jnp.where(active_g, hres.max_signal_vel[:ng],
-                        gas.max_signal_vel)
-
-        flags = st.overflow_flags | jnp.where(
-            cls[0].overflow | ovf1, jnp.int32(2), jnp.int32(0))
-        gas = dataclasses.replace(
-            gas, density=rho, hsml=hsml, pressure=pressure, div_vel=divv,
-            curl_vel=curlv, dhsml_density_factor=dhf, num_ngb=nngb,
-            hydro_acc=hydro_acc, dt_entropy=dt_entropy,
-            max_signal_vel=msv)
-        return dataclasses.replace(st, gas=gas, overflow_flags=flags)
-
     def _sph(st, me, x0, x1, xc, active):
         from gadget_leicester_tpu.core.config import GAMMA_MINUS1  # noqa
         from gadget_leicester_tpu.ops.neighbors import build_cell_list
         from gadget_leicester_tpu.ops.sph_cells import (
             density_adaptive_cells, hydro_force_cells)
-
-        if use_pallas:
-            return _sph_blocks(st, me, x0, x1, xc, active)
 
         gas = st.gas
         p = st.p
@@ -1138,23 +841,13 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
         # SPH cell edge (and h cap): the single-device auto heuristic on
         # the GLOBAL gas count so results match the replicated run
         n_glob = ng * d
-        if use_pallas:
-            # the single-chip Pallas tuning (sph_cells_geometry): target
-            # mean occupancy ~100 for a 128-lane tile — the fine spacing
-            # grid at 128 lanes runs ~0.3 fill. REAL global gas count
-            # (slot counts carry the to_spmd fill padding). Floored so
-            # the cell edge (= ghost reach) never exceeds a slab width.
-            n_sph = max(3, int(round((SLAB_FILL * n_glob / 100.0)
-                                     ** (1.0 / 3.0))),
-                        int(np.ceil(1.02 * box / w_min)))
-        else:
-            spacing_cells = (n_glob ** (1.0 / 3.0)) / (
-                1.6 * (3.0 * cfg.des_num_ngb / (4.0 * 3.14159)) ** (1. / 3))
-            # same floor as the Pallas branch: the cell edge (= ghost
-            # reach) must never exceed a slab width — matters when the
-            # gas block is tiny/empty padding (DM-only runs)
-            n_sph = max(3, int(spacing_cells),
-                        int(np.ceil(1.02 * box / w_min)))
+        spacing_cells = (n_glob ** (1.0 / 3.0)) / (
+            1.6 * (3.0 * cfg.des_num_ngb / (4.0 * 3.14159)) ** (1. / 3))
+        # floored so the cell edge (= ghost reach) never exceeds a slab
+        # width — matters when the gas block is tiny/empty padding
+        # (DM-only runs)
+        n_sph = max(3, int(spacing_cells),
+                    int(np.ceil(1.02 * box / w_min)))
         cell_sph = box / n_sph
         if w_min < cell_sph:
             raise ValueError("slab thinner than the SPH cell edge")
@@ -1189,13 +882,11 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
         nx = max(1, int((w_min + 2 * cell_sph) / cell_sph))
         ext_x_s = (x1 - x0) + 2 * cell_sph
         n_cat = cat_pos.shape[0]
-        if use_pallas:
-            # lane tiles at the occupancy-tuned grid (see n_sph),
-            # auto-scaled when even this grid packs > ~0.8*128 per cell;
-            # REAL-count estimate, not slot counts (see _gravity)
-            n_est = int(SLAB_FILL * ng * (1.0 + 3.0 * cell_sph / w_min))
-            cap_sph = _occ_cap(n_est, nx * n_sph * n_sph,
-                               opts.sph_capacity)
+        if pairs == "triton":
+            # REAL-count estimate, not slot counts (see slab_grid_geom)
+            n_est = SLAB_FILL * ng * (1.0 + 3.0 * cell_sph / w_min)
+            cap_sph = kernel_capacity(n_est / (nx * n_sph * n_sph),
+                                      opts.sph_capacity)
         else:
             cap_sph = opts.sph_capacity if opts.sph_capacity > 0 else max(
                 64, -(-3 * n_cat // (nx * n_sph * n_sph) // 8) * 8)
@@ -1209,25 +900,15 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
             capacity=cap_sph,
             periodic=(False, pyz, pyz))
         h_cat = jnp.concatenate([h0, jnp.full((2 * gcap,), 1.0, h0.dtype)])
-        if use_pallas:
-            from gadget_leicester_tpu.ops.pallas_cells import \
-                density_adaptive_pallas
-            with jax.named_scope("spmd_sph_density"):
-                dres, _ = density_adaptive_pallas(
-                    cat_pos, cat_vel, cat_mass, h_cat, cat_mask,
-                    des_num_ngb=cfg.des_num_ngb,
-                    max_dev=cfg.max_num_ngb_deviation,
-                    box=box, n_cells=(nx, n_sph, n_sph), capacity=cap_sph,
-                    min_hsml=min_hsml, max_hsml=max_hsml,
-                    periodic=(False, pyz, pyz), interpret=pallas_interp,
-                    n_targets=ng, cl=cl)
-        else:
+        # ghosts are SOURCES only (targets end at the local block)
+        with jax.named_scope("spmd_sph_density"):
             dres = density_adaptive_cells(
                 cl, cat_pos, cat_vel, cat_mass, h_cat,
                 cat_mask, des_num_ngb=cfg.des_num_ngb,
                 max_dev=cfg.max_num_ngb_deviation,
                 min_hsml=min_hsml, max_hsml=max_hsml,
-                box=box, periodic=per, n_targets=ng)
+                box=box, periodic=per, n_targets=ng,
+                backend=pairs, targets=active_g)
 
         rho = jnp.where(active_g, dres.rho, gas.density)
         hsml = jnp.where(active_g, dres.hsml, gas.hsml)
@@ -1275,20 +956,7 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
         # deterministic boundary-strip packing — only field VALUES
         # changed), and cell membership depends on position only
         cl2 = cl
-        if use_pallas:
-            from gadget_leicester_tpu.ops.pallas_cells import \
-                hydro_force_pallas
-            with jax.named_scope("spmd_sph_hydro"):
-                hres = hydro_force_pallas(
-                    cl2, cat2["pos"], cat2["vel"], cat2["mass"],
-                    cat2["hsml"], cat2["rho"], cat2["prs"], cat2["dhf"],
-                    cat2["div"], cat2["curl"], cat2["mask"],
-                    visc_const=cfg.art_bulk_visc_const, box=box,
-                    n_cells=(nx, n_sph, n_sph),
-                    hubble_a2_flow=fac.hubble_a2_flow,
-                    hubble_a2_norm=fac.hubble_a2_norm, fac_mu=fac.fac_mu,
-                    interpret=pallas_interp, n_targets=ng)
-        else:
+        with jax.named_scope("spmd_sph_hydro"):
             hres = hydro_force_cells(
                 cl2, cat2["pos"], cat2["vel"], cat2["mass"], cat2["hsml"],
                 cat2["rho"], cat2["prs"], cat2["dhf"], cat2["div"],
@@ -1296,7 +964,9 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
                 visc_const=cfg.art_bulk_visc_const, box=box, periodic=per,
                 hubble_a2_flow=fac.hubble_a2_flow,
                 hubble_a2_norm=fac.hubble_a2_norm, fac_mu=fac.fac_mu,
-                n_targets=ng)
+                n_targets=ng, backend=pairs,
+                targets=jnp.concatenate([active_g,
+                                         jnp.zeros((2 * gcap,), bool)]))
 
         hydro_acc = jnp.where(active_g[:, None], hres.acc, gas.hydro_acc)
         dt_entropy = jnp.where(active_g, hres.dt_entropy, gas.dt_entropy)
@@ -1439,7 +1109,8 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
             m_g = jnp.where(gas_mask, p.mass[:ng], 0.0)
             wm = jnp.where(claim, m_g[None, :], 0.0)
             dm = jnp.sum(wm, axis=1)                        # [3S]
-            dp = jnp.einsum("sn,nc->sc", wm, p.vel[:ng])    # [3S,3]
+            dp = jnp.einsum("sn,nc->sc", wm, p.vel[:ng],
+                            precision=HIGHEST)              # [3S,3]
             n_acc = jnp.sum(claim, axis=1).astype(jnp.int32)
 
             # deltas for ghost sinks travel back to their owner shard
@@ -1464,7 +1135,7 @@ def make_spmd_step(cfg: SimConfig, opts: SimOptions, mesh: Mesh,
                       == spid[None, :])
                      & valid_s[None, :] & (sinks.slot[:, None] >= 0))
             acc_mass_c = jax.lax.psum(
-                match.astype(dm_t.dtype) @ dm_t, AXIS)
+                jnp.dot(match.astype(dm_t.dtype), dm_t, precision=HIGHEST), AXIS)
             n_acc_c = jax.lax.psum(match.astype(jnp.int32) @ n_t, AXIS)
             sinks = dataclasses.replace(
                 sinks, acc_mass=sinks.acc_mass + acc_mass_c,

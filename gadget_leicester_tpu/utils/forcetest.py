@@ -88,6 +88,40 @@ def run_forcetest(state: SimState, cfg: SimConfig, opts: SimOptions,
     }
 
 
+def exact_periodic_acc(pos, mass, soft, alive, targets, box: float,
+                       block: int = 16):
+    """Device oracle for large N: accelerations (no G) of the ``targets``
+    rows by direct summation over every alive source, minimum image with
+    the spline-softened kernel plus the tabulated Ewald correction for the
+    other images [G2: gravity_forcetest() with the Ewald correction].
+    O(len(targets) * N) — for a subset of a few thousand targets."""
+    import jax
+    from gadget_leicester_tpu.ops.ewald import (ewald_correction_jnp,
+                                                ewald_correction_table)
+    from gadget_leicester_tpu.ops.softening import grav_fac
+    table = ewald_correction_table()
+    src_m = jnp.where(alive, mass, 0.0)
+    nt = targets.shape[0]
+    pad = -nt % block
+    tg = jnp.concatenate([targets, jnp.full((pad,), targets[0])])
+
+    def one(idx):
+        dx = pos[idx][:, None, :] - pos[None, :, :]
+        dx = dx - box * jnp.round(dx / box)
+        r = jnp.sqrt(jnp.sum(dx * dx, axis=-1))
+        h = jnp.maximum(soft[idx][:, None], soft[None, :])
+        fac = jnp.where(r > 0, grav_fac(r, h), 0.0)
+        acc = -jnp.einsum("bn,bnc->bc", src_m[None, :] * fac, dx,
+                          precision=jax.lax.Precision.HIGHEST)
+        corr, _ = ewald_correction_jnp(dx, box, table)
+        corr = jnp.where((r > 0)[..., None], corr, 0.0)
+        return acc + jnp.einsum("n,bnc->bc", src_m, corr,
+                                precision=jax.lax.Precision.HIGHEST)
+
+    out = jax.lax.map(one, tg.reshape(-1, block))
+    return out.reshape(-1, 3)[:nt]
+
+
 def write_forcetest_file(result, state: SimState, cfg: SimConfig,
                          path: str | None = None):
     """forcetest.txt lines [G2: gravity_forcetest() output]:

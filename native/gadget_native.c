@@ -1,6 +1,6 @@
 /* gadget_native — native runtime helpers for gadget_leicester_tpu.
  *
- * TPU-native rebuild of the reference's host-side hot paths:
+ * Rebuild of the reference's host-side hot paths:
  *   - Peano-Hilbert keys [G2: peano.c :: peano_hilbert_key()] via the
  *     Skilling transpose algorithm (fresh implementation, not the
  *     reference's rotation lookup tables — same curve, same locality

@@ -40,7 +40,7 @@ def test_instep_potential_matches_full_potential():
     cfg = parse_parameter_text(PARAM)
     # sinks flag turns the in-step potential feed on (with_pot path)
     opts = SimOptions(periodic=True, pmgrid=24, gravity_mode="treepm",
-                      sph_backend="cells", use_pallas="off", sinks=True)
+                      sph_backend="cells", sinks=True)
     pos, vel, mass, ptype, u = lcdm_gas_ics(
         n_side=10, box=BOX, omega0=0.3, omega_b=0.04,
         hubble=cfg.hubble_internal, g=cfg.grav_internal)

@@ -166,3 +166,24 @@ def test_fmt2_unknown_blocks_skipped(tmp_path, rng):
     np.testing.assert_array_equal(back.rho, snap.rho)
     np.testing.assert_array_equal(back.hsml, snap.hsml)
     np.testing.assert_allclose(back.mass, snap.mass)
+
+
+@pytest.mark.parametrize("op", ["read", "write"])
+def test_hdf5_without_h5py_raises_clearly(tmp_path, rng, monkeypatch, op):
+    """h5py is optional: without it, formats 1/2 still work and the HDF5
+    reader/writer raise an error naming the missing package."""
+    import sys
+    monkeypatch.setitem(sys.modules, "h5py", None)   # import -> ImportError
+    snap = _mk_snap(rng)
+    path = str(tmp_path / "snap.hdf5")
+    if op == "read":
+        with open(path, "wb") as fh:                  # HDF5 signature only
+            fh.write(b"\x89HDF\r\n\x1a\n" + bytes(64))
+        with pytest.raises(RuntimeError, match="h5py"):
+            read_snapshot(path)
+    else:
+        with pytest.raises(RuntimeError, match="h5py"):
+            write_snapshot(path, snap, fmt=3)
+    write_snapshot(str(tmp_path / "snap1"), snap, fmt=1)
+    back = read_snapshot(str(tmp_path / "snap1"))
+    np.testing.assert_array_equal(back.pos, snap.pos)

@@ -1,6 +1,6 @@
 """Layzer-Irvine tracker correctness (the in-tree half of the BASELINE
-|dE/E| < 1e-3 gate; the full-config measurement runs on the real chip
-via tools/li_check.py — recorded PASS at 4.24e-4 in BASELINE.md).
+|dE/E| < 1e-3 gate; the full-config measurement runs on the GPU via
+tools/li_check.py).
 
 Exact solution used: with W = W0/a (potential), U = U0/a^2 (adiabatic
 gamma=5/3 thermal) the cosmic energy equation

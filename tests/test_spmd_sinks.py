@@ -96,7 +96,7 @@ def test_spmd_sink_accretion_matches_single_device():
     n_dev = 4
     cfg = parse_parameter_text(PARAM)
     opts = SimOptions(periodic=True, pmgrid=24, gravity_mode="treepm",
-                      sph_backend="cells", use_pallas="off", sinks=True)
+                      sph_backend="cells", sinks=True)
     # uniform edges known up front so the ICs can place a sink on a face
     edges = np.linspace(0.0, BOX, n_dev + 1)
     pos, vel, mass, ptype, u = _ics_with_sinks(cfg, n_side, edges)

@@ -64,7 +64,7 @@ def test_spmd_step_matches_single_device():
     pmgrid = {16: 24, 32: 48}.get(n_side, 48)
     cfg = parse_parameter_text(PARAM)
     opts = SimOptions(periodic=True, pmgrid=pmgrid, gravity_mode="treepm",
-                      sph_backend="cells", use_pallas="off")
+                      sph_backend="cells")
     sim = Simulation(cfg, opts)
     pos, vel, mass, ptype, u = lcdm_gas_ics(
         n_side=n_side, box=BOX, omega0=0.3, omega_b=0.04,
@@ -130,7 +130,7 @@ TimeOfFirstSnapshot 0.0915
 """).replace(output_dir=str(tmp_path / "single"))
     cfg2 = cfg1.replace(output_dir=str(tmp_path / "spmd"))
     opts = SimOptions(periodic=True, pmgrid=24, gravity_mode="treepm",
-                      sph_backend="cells", use_pallas="off")
+                      sph_backend="cells")
     ics = lcdm_gas_ics(n_side=n_side, box=BOX, omega0=0.3, omega_b=0.04,
                        hubble=cfg1.hubble_internal, g=cfg1.grav_internal)
     pos, vel, mass, ptype, u = ics
@@ -218,7 +218,7 @@ def test_spmd_step_hlo_no_particle_allgather():
     n_side = 32
     cfg = parse_parameter_text(PARAM)
     opts = SimOptions(periodic=True, pmgrid=48, gravity_mode="treepm",
-                      sph_backend="cells", use_pallas="off")
+                      sph_backend="cells")
     sim = Simulation(cfg, opts)
     pos, vel, mass, ptype, u = lcdm_gas_ics(
         n_side=n_side, box=BOX, omega0=0.3, omega_b=0.04,

@@ -89,7 +89,7 @@ def test_vacuum_spmd_gravity_matches_dense_split():
     # heuristic; production bumps on the sticky overflow flag — the
     # parity assert needs it right first try
     opts = SimOptions(periodic=False, pmgrid=24, sph_backend="cells",
-                      use_pallas="off", sr_capacity=512)
+                      sr_capacity=512)
     pos, vel, mass, = _two_clumps()
     n = pos.shape[0]
     sim = Simulation(cfg, opts, mesh=4)
@@ -142,8 +142,7 @@ def test_vacuum_spmd_gas_d4_matches_d1():
     u = np.full(n, 0.05, np.float32)
 
     cfg = parse_parameter_text(PARAM)
-    opts = SimOptions(periodic=False, pmgrid=24, sph_backend="cells",
-                      use_pallas="off")
+    opts = SimOptions(periodic=False, pmgrid=24, sph_backend="cells")
 
     outs = []
     for d in (1, 4):

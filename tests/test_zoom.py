@@ -43,7 +43,7 @@ SofteningDisk 20
 """
     cfg = parse_parameter_text(param)
     opts = SimOptions(periodic=False, pmgrid=32, hr_pmgrid=32, hr_types=0b10,
-                      gravity_mode="zoom", use_pallas="off")
+                      gravity_mode="zoom")
     state = from_arrays(pos, vel, mass, ptype,
                         np.arange(len(mass)), opts)
     state = compute_forces(state, cfg, opts, do_sph=False)

@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""Flagship Leicester-disc workload run (VERDICT r4 item 5): a
+"""Flagship Leicester-disc workload run: a
 self-gravitating protoplanetary disc with beta cooling + sinks evolved
 through sink formation and sustained accretion over >= 10 inner orbits,
-on the real chip. Tracks energy, angular momentum, sink count/mass, and
+on the accelerator. Tracks energy, angular momentum, sink count/mass, and
 throughput; writes docs/disc_run.json every cadence.
 
-RESUMABLE: bitwise restart dump at /tmp/disc_resume_{n}.npz every
+RESUMABLE: bitwise restart dump at <checkout>/disc_out/disc_resume_{n}.npz every
 cadence (delete to start fresh) — a wall kill costs one cadence.
 
 Usage: python -u tools/disc_run.py [n_gas] [t_end] [stats_every_steps]
@@ -21,9 +21,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+from gadget_leicester_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -61,7 +61,10 @@ def main():
     cfg = parse_parameter_text(ptxt)
     opts = SimOptions(periodic=False, cooling="beta", sinks=True)
 
-    resume = f"/tmp/disc_resume_{n_gas}.npz"
+    out = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "disc_out")
+    os.makedirs(out, exist_ok=True)
+    resume = os.path.join(out, f"disc_resume_{n_gas}.npz")
     out_json = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "docs", "disc_run.json")
 

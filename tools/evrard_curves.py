@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Evrard collapse energy curves at several resolutions — the published
-trajectory oracle infrastructure (SURVEY.md §4 item 3; VERDICT r4 item 6).
+trajectory oracle infrastructure (SURVEY.md §4 item 3).
 
 Runs the gassphere (Evrard 1988) setup at the requested particle counts,
 samples kinetic / thermal / potential energy on a fixed time grid, and
@@ -25,9 +25,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import jax
+from gadget_leicester_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+enable_compile_cache()
 
 
 def run_curve(n_gas, t_end=3.0, n_samples=60, backend=None):

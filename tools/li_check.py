@@ -1,12 +1,11 @@
 #!/usr/bin/env python
 """Layzer-Irvine cosmic-energy conservation check on the lcdm_gas config
-(VERDICT r1 item 5; gate |dE_LI|/|W| < 1e-3, BASELINE.json).
+(gate |dE_LI|/|W| < 1e-3, BASELINE.json).
 
 Usage: python -u tools/li_check.py [n_side] [a_end] [stats_every]
 
-RESUMABLE (VERDICT r3 item 6): every stats cadence the run writes a
-bitwise restart dump + the tracker's integral state to
-/tmp/li_resume_{n_side}.npz; a re-run with the same n_side picks up from
+RESUMABLE: every stats cadence the run writes a bitwise restart dump +
+the tracker's integral state to <checkout>/li_out/li_resume_{n_side}.npz; a re-run with the same n_side picks up from
 the dump instead of re-integrating from a=0.0909, so a wall-budget kill
 costs at most one cadence of progress. Delete the dump to start fresh.
 """
@@ -14,11 +13,13 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(REPO, "li_out")
+sys.path.insert(0, REPO)
 
-import jax
+from gadget_leicester_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -38,7 +39,7 @@ def main():
     box = 50000.0
     param = f"""
 InitCondFile x
-OutputDir  /tmp/li_out
+OutputDir  {OUT}
 TimeBegin  0.090909
 TimeMax    1.0
 ComovingIntegrationOn 1
@@ -64,11 +65,10 @@ MinGasHsmlFractional 0.1
 """
     cfg = parse_parameter_text(param)
     pmgrid = auto_pmgrid(2 * n_side**3)
-    # capacities: LI_SR_CAP/LI_SPH_CAP env overrides (0 = auto; the 64^3
-    # runs historically used sr 256 — at 128^3 the auto cap-128 grid is
-    # ~2x faster and overflow is watched below)
+    # capacities: LI_SR_CAP/LI_SPH_CAP env overrides (0 = auto; overflow
+    # is watched below)
     sr_cap = int(os.environ.get("LI_SR_CAP", "0"))
-    sph_cap = int(os.environ.get("LI_SPH_CAP", "64"))
+    sph_cap = int(os.environ.get("LI_SPH_CAP", "0"))
     opts = SimOptions(periodic=True, pmgrid=pmgrid, gravity_mode="treepm",
                       sph_backend="auto", sph_capacity=sph_cap,
                       sr_capacity=sr_cap)
@@ -77,7 +77,8 @@ MinGasHsmlFractional 0.1
     from gadget_leicester_tpu.io.restart import load_restart, save_restart
     from gadget_leicester_tpu.models.grids import make_grid_cache
 
-    resume_path = f"/tmp/li_resume_{n_side}.npz"
+    os.makedirs(OUT, exist_ok=True)
+    resume_path = os.path.join(OUT, f"li_resume_{n_side}.npz")
     tracker = LayzerIrvineTracker()
     sim = Simulation(cfg, opts)
     if os.path.exists(resume_path):
